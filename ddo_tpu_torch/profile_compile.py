@@ -1,0 +1,105 @@
+"""Where the time of one K-lane compile goes on a GPU.
+
+    python -m ddo_tpu_torch.profile_compile
+
+Runs `chip_smoke.py`'s real-size shape, a relaxed `compile_batch` of 128
+root lanes of `generate_uncorrelated(2000, 1000, 1, 100, seed=0)` at
+buffer width 256, three times on `cuda:0`: once to warm up, once
+timed on the wall clock, and once under `torch.profiler`.  Prints one JSON
+line: the wall time (total and per layer), the kernel launches (total and
+per layer, counted from the CUDA runtime's launch calls), the device time
+(the sum of every kernel's and copy's own device time), the device's idle
+share of the unprofiled wall time, and the top device-time entries.  The
+profiler's table goes to standard error.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+N_ITEMS, LANES, WIDTH, SEED = 2000, 128, 256, 0
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+
+
+def _device_us(entry) -> float:
+    """An aggregated profiler entry's own device time (us), under either
+    of the attribute names torch releases use."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(entry, name, None)
+        if value is not None:
+            return float(value)
+    return 0.0
+
+
+def _on_device(entry) -> bool:
+    """A kernel or copy that ran on the GPU (the entries whose own device
+    time the profiler's "Self CUDA time total" adds up)."""
+    return (entry.device_type == DeviceType.CUDA
+            and not getattr(entry, "is_user_annotation", False))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_compile: no CUDA device", file=sys.stderr)
+        return 2
+
+    import ddo_tpu_torch as tt
+    from ddo_tpu_torch.models import knapsack as kp
+
+    dev = torch.device("cuda", 0)
+    pb = kp.generate_uncorrelated(N_ITEMS, 1000, 1, 100, SEED)
+    compiler = tt.DDCompiler(tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()),
+                             WIDTH, tt.LAST_EXACT_LAYER, device=dev)
+    roots = [tt.root_subproblem(pb)] * LANES
+
+    def compile_once():
+        batch = compiler.compile_batch(tt.CompilationType.RELAXED, roots, tt.NEG_INF,
+                                       [WIDTH] * LANES)
+        expanded = batch.total_expanded  # waits for the device
+        torch.cuda.synchronize()
+        return expanded
+
+    compile_once()
+    t0 = time.perf_counter()
+    expanded = compile_once()
+    wall = time.perf_counter() - t0
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        compile_once()
+    profiled_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entries = prof.key_averages()
+    launches = sum(e.count for e in entries if e.key in _LAUNCH_CALLS)
+    on_device = [e for e in entries if _on_device(e)]
+    device_us = sum(_device_us(e) for e in on_device)
+    top = sorted(on_device, key=_device_us, reverse=True)[:12]
+    analysis = time.perf_counter() - t0
+
+    key = next((k for k in ("self_device_time_total", "self_cuda_time_total")
+                if entries and hasattr(entries[0], k)), None)
+    print(entries.table(sort_by=key, row_limit=60), file=sys.stderr)
+    print(json.dumps({
+        "phase": "profile_compile", "n": N_ITEMS, "lanes": LANES,
+        "width": WIDTH, "expanded": expanded,
+        "wall_s": wall, "wall_ms_per_layer": 1e3 * wall / N_ITEMS,
+        "profiled_wall_s": profiled_wall, "analysis_s": analysis,
+        "launches": launches, "launches_per_layer": launches / N_ITEMS,
+        "device_ms": device_us / 1e3,
+        "device_idle_share": 1.0 - device_us / 1e6 / wall,
+        "top": [{"name": e.key, "count": e.count, "device_ms": _device_us(e) / 1e3,
+                 "share": _device_us(e) / device_us if device_us else 0.0}
+                for e in top],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,394 @@
+"""Branch-and-bound solver driving batched DD compilations on a device.
+
+Counterpart of `ddo_tpu/search/solver.py`:
+  * `SequentialSolver` (reference sequential.rs:202-526):
+    `SequentialSolver(batch=1)` reproduces its node-at-a-time loop;
+  * `ParallelSolver` (parallel.rs:287-653): instead of worker threads on a
+    shared fringe, each superstep pops up to K subproblems and compiles K
+    restricted, then K relaxed, DDs in one K-lane engine pass.
+
+Extraction takes the plane route: after a superstep every plane the host
+reads crosses to the host once (one `.cpu()` per plane, for all lanes),
+never per node.  Cutset branch-and-bound is exploration-order independent,
+so popping K nodes changes when incumbents and thresholds appear, never
+the proved optimum.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ddo_tpu_torch.core.heuristics import Cutoff, FixedWidth, NoCutoff, WidthHeuristic
+from ddo_tpu_torch.core.problem import ModelBundle
+from ddo_tpu_torch.core.types import (
+    Completion,
+    CompilationType,
+    CutsetType,
+    Reason,
+    SubProblem,
+    root_subproblem,
+)
+from ddo_tpu_torch.engine.mdd import CutoffInterrupt, DDCompiler
+from ddo_tpu_torch.search.cache import Cache, EmptyCache
+from ddo_tpu_torch.search.dominance import DominanceChecker, EmptyDominanceChecker
+from ddo_tpu_torch.search.fringe import Fringe, NoDupFringe
+from ddo_tpu_torch.utils.num import INF, NEG_INF
+
+
+@dataclasses.dataclass
+class SolverStats:
+    """Per-phase wall times and the node-expansions/s rate."""
+
+    restricted_s: float = 0.0  # restricted compilations (the whole fused
+    #                            superstep on the fused route)
+    relaxed_s: float = 0.0  # relaxed compilations (two-pass route)
+    host_s: float = 0.0  # host time: extraction, cache, fringe upkeep
+    supersteps: int = 0
+    start: float = 0.0
+    total_s: float = 0.0
+
+    def expansions_per_sec(self, expanded: int) -> float:
+        dev = self.restricted_s + self.relaxed_s
+        return expanded / dev if dev > 0 else 0.0
+
+    def summary(self, explored: int, expanded: int) -> str:
+        return (
+            f"supersteps={self.supersteps} explored={explored} "
+            f"expanded={expanded} restricted={self.restricted_s:.3f}s "
+            f"relaxed={self.relaxed_s:.3f}s host={self.host_s:.3f}s "
+            f"total={self.total_s:.3f}s "
+            f"rate={self.expansions_per_sec(expanded):,.0f} nodes/s"
+        )
+
+
+class SequentialSolver:
+    """Best-first branch-and-bound over exact cutsets (sequential.rs:202);
+    with `batch > 1` each iteration pops up to `batch` subproblems and
+    compiles them as one K-lane pass on `device`."""
+
+    def __init__(
+        self,
+        bundle: ModelBundle,
+        width_heu: Optional[WidthHeuristic] = None,
+        buffer_width: Optional[int] = None,
+        cutset_type: CutsetType = CutsetType.LAST_EXACT_LAYER,
+        cache: Optional[Cache] = None,
+        dominance: Optional[DominanceChecker] = None,
+        cutoff: Optional[Cutoff] = None,
+        fringe: Optional[Fringe] = None,
+        batch: int = 1,
+        subproblem_ranking=None,
+        in_compile_filtering: bool = True,
+        compile_chunk: Optional[int] = None,
+        *,
+        device,
+    ):
+        self.bundle = bundle
+        problem = bundle.problem
+        self.problem = problem
+        self.width_heu = width_heu or FixedWidth(max(2, problem.domain_size))
+        W = buffer_width
+        if W is None:
+            # buffer must hold any unsquashed layer: relaxed DDs never squash
+            # their first DD layer (clean.rs:788-793), which holds <= D nodes
+            W = max(problem.domain_size,
+                    max(2, self.width_heu.max_width(root_subproblem(problem))))
+        # static buffer rounded up to a power of two (>= 8)
+        W = max(8, 1 << (int(W) - 1).bit_length())
+        self.cache = cache if cache is not None else EmptyCache()
+        self.dominance = dominance if dominance is not None else EmptyDominanceChecker()
+        # in-compilation filtering (clean.rs:689-726): prune each layer
+        # against snapshots of the cache/dominance stores
+        self.filtering = in_compile_filtering
+        dom_obj = self.dominance.dom if self.filtering else None
+        self.device = torch.device(device)
+        self.compiler = DDCompiler(bundle, W, cutset_type, dominance=dom_obj,
+                                   device=self.device)
+        self.cutoff = cutoff or NoCutoff()
+        # chunked compiles let a real cutoff interrupt a long compilation
+        # (the reference polls per layer, clean.rs:352-354)
+        if compile_chunk is None and not isinstance(self.cutoff, NoCutoff):
+            compile_chunk = 32
+        self.compile_chunk = compile_chunk
+        self.fringe = fringe if fringe is not None else NoDupFringe(subproblem_ranking)
+        self.batch = batch
+
+        self.best_lb = NEG_INF
+        self.best_ub = INF
+        self.best_sol = None  # (vals, set_mask)
+        self.abort_proof = None
+        self.explored_count = 0
+        self.expanded_nodes = 0  # total DD node expansions (bench metric)
+        self.open_by_layer = np.zeros(problem.nb_variables + 1, np.int64)
+        self.first_active_layer = 0
+        self.stats = SolverStats()
+
+    # ------------------------------------------------------------------ API
+    def maximize(self) -> Completion:
+        """sequential.rs:475-494."""
+        self.stats.start = time.perf_counter()
+        self.cache.initialize(self.problem)
+        if self.filtering:
+            self.dominance.prime(self.problem)
+        self.fringe.push(root_subproblem(self.problem))
+        self.open_by_layer[0] += 1
+
+        while True:
+            batch = self._get_workload()
+            if batch is None:
+                break
+            if self.cutoff.must_stop():
+                self._abort(Reason.CUTOFF_OCCURRED, batch)
+                break
+            try:
+                self._process_batch(batch)
+            except CutoffInterrupt:
+                # the cutoff fired inside a chunked compilation
+                self._abort(Reason.CUTOFF_OCCURRED, batch)
+                break
+            self.stats.supersteps += 1
+
+        self.stats.total_s = time.perf_counter() - self.stats.start
+        if self.abort_proof is None:
+            self.best_ub = self.best_lb
+        return Completion(
+            is_exact=self.abort_proof is None,
+            best_value=self.best_lb if self.best_sol is not None else None,
+        )
+
+    def best_value(self):
+        return self.best_lb if self.best_sol is not None else None
+
+    def best_solution(self):
+        return self.best_sol
+
+    def best_lower_bound(self):
+        return self.best_lb
+
+    def best_upper_bound(self):
+        return self.best_ub
+
+    def set_primal(self, value, solution):
+        """abstraction/solver.rs:77, parallel.rs:630-636."""
+        if value > self.best_lb:
+            self.best_lb = value
+            self.best_sol = solution
+
+    def gap(self) -> float:
+        """abstraction/solver.rs:80-93."""
+        ub, lb = self.best_ub, self.best_lb
+        if ub >= INF or lb <= NEG_INF:
+            return 1.0
+        u, l = max(abs(ub), abs(lb)), min(abs(ub), abs(lb))
+        return (u - l) / u if u else 0.0
+
+    def explored(self):
+        return self.explored_count
+
+    # ----------------------------------------------------------- internals
+    def _get_workload(self):
+        """Pop up to `batch` still-relevant subproblems (sequential.rs:433-461)."""
+        n = self.problem.nb_variables
+        # layer-sweep cache eviction (sequential.rs:436-440)
+        while (self.first_active_layer < n
+               and self.open_by_layer[self.first_active_layer] == 0):
+            self.cache.clear_layer(self.first_active_layer)
+            self.dominance.clear_layer(self.first_active_layer)
+            self.first_active_layer += 1
+
+        while True:
+            batch = []
+            while len(batch) < self.batch:
+                node = self.fringe.pop()
+                if node is None:
+                    break
+                self.explored_count += 1
+                self.open_by_layer[node.depth] -= 1
+                self.best_ub = min(self.best_ub, max(node.ub, self.best_lb))
+                if node.ub <= self.best_lb:
+                    continue  # sequential.rs:337-339
+                if not self.cache.must_explore(node):
+                    continue  # sequential.rs:341-343
+                # pop-time dominance probe: a popped node may have become
+                # dominated since its enqueue (clean.rs:674)
+                if self.filtering and self.dominance.dom is not None:
+                    if node.dom_key is not None:
+                        dominated = self.dominance.is_dominated_cols(
+                            node.dom_key, node.dom_coords, node.depth, node.value)
+                    else:
+                        dominated = self.dominance.is_dominated(
+                            node.state, node.depth, node.value)
+                    if dominated:
+                        continue
+                batch.append(node)
+            if batch:
+                return batch
+            if self.fringe.is_empty():
+                return None
+
+    def _filter_tables(self):
+        """Snapshot the cache/dominance stores as device filter tables."""
+        if not self.filtering:
+            return None, None
+        dev = self.compiler.device
+        return self.cache.snapshot(dev), self.dominance.snapshot(dev)
+
+    def _process_batch(self, batch):
+        """sequential.rs:329-389 vectorized over the batch."""
+        widths = [max(1, self.width_heu.max_width(nd)) for nd in batch]
+        chunking = (
+            self.compile_chunk is not None
+            and not isinstance(self.cutoff, NoCutoff)
+            and self.problem.nb_variables > self.compile_chunk
+        )
+        if not chunking:
+            return self._process_batch_fused(batch, widths)
+
+        t0 = time.perf_counter()
+        cache_tab, dom_tab = self._filter_tables()
+        restricted = self.compiler.compile_batch(
+            CompilationType.RESTRICTED, batch, self.best_lb, widths,
+            cache_tab=cache_tab, dom_tab=dom_tab,
+            cutoff=self.cutoff, chunk_layers=self.compile_chunk,
+        )
+        self.expanded_nodes += restricted.total_expanded
+        t1 = time.perf_counter()
+        self.stats.restricted_s += t1 - t0
+        need_relax, widths2 = [], []
+        improved = restricted.global_best > self.best_lb
+        for nd, dd, w in zip(batch, restricted, widths):
+            if improved:
+                self._maybe_update_best(dd)
+            self._apply_cache_updates(dd)
+            self._absorb_dominance(dd)
+            if not dd.is_exact():
+                need_relax.append(nd)
+                widths2.append(w)
+        self.stats.host_s += time.perf_counter() - t1
+
+        if not need_relax:
+            return
+        t2 = time.perf_counter()
+        # refreshed snapshots: the restricted pass may have strengthened
+        # both stores
+        cache_tab, dom_tab = self._filter_tables()
+        relaxed = self.compiler.compile_batch(
+            CompilationType.RELAXED, need_relax, self.best_lb, widths2,
+            cache_tab=cache_tab, dom_tab=dom_tab,
+            cutoff=self.cutoff, chunk_layers=self.compile_chunk,
+        )
+        self.expanded_nodes += relaxed.total_expanded
+        t3 = time.perf_counter()
+        self.stats.relaxed_s += t3 - t2
+        improved = relaxed.global_best > self.best_lb
+        for nd, dd in zip(need_relax, relaxed):
+            if improved:
+                self._maybe_update_best(dd)
+            self._apply_cache_updates(dd)
+            self._absorb_dominance(dd)
+            if not dd.is_exact():
+                self._enqueue_cutset(nd, dd)
+        self.stats.host_s += time.perf_counter() - t3
+
+    def _process_batch_fused(self, batch, widths):
+        """One superstep (engine `compile_fused`): restricted + relaxed
+        back to back on the device, the relaxed pass pruning against the
+        restricted pass's incumbent.  Both passes share the pre-superstep
+        cache/dominance snapshots (ddo_tpu's documented divergence from
+        the two-pass route: a staler snapshot only weakens pruning)."""
+        t0 = time.perf_counter()
+        cache_tab, dom_tab = self._filter_tables()
+        restricted, relaxed = self.compiler.compile_fused(
+            batch, self.best_lb, widths, cache_tab=cache_tab, dom_tab=dom_tab)
+        self.expanded_nodes += restricted.total_expanded + relaxed.total_expanded
+        t1 = time.perf_counter()
+        self.stats.restricted_s += t1 - t0
+        improved = restricted.global_best > self.best_lb
+        need = []
+        for nd, dd_r, dd_x in zip(batch, restricted, relaxed):
+            if improved:
+                self._maybe_update_best(dd_r)
+            self._apply_cache_updates(dd_r)
+            self._absorb_dominance(dd_r)
+            if not dd_r.is_exact():
+                need.append((nd, dd_x))
+        improved = relaxed.global_best > self.best_lb
+        for nd, dd_x in need:
+            if improved:
+                self._maybe_update_best(dd_x)
+            self._apply_cache_updates(dd_x)
+            self._absorb_dominance(dd_x)
+            if not dd_x.is_exact():
+                self._enqueue_cutset(nd, dd_x)
+        self.stats.host_s += time.perf_counter() - t1
+
+    def _maybe_update_best(self, dd):
+        """sequential.rs:394-400."""
+        val = dd.best_exact_value()
+        if val is not None and val > self.best_lb:
+            self.best_lb = val
+            self.best_sol = dd.best_exact_solution()
+
+    def _apply_cache_updates(self, dd):
+        if isinstance(self.cache, EmptyCache):
+            return
+        self.cache.update_batch(*dd.cache_batch())
+
+    def _absorb_dominance(self, dd):
+        """Feed every live exact node to the global dominance store (the
+        insertions _filter_with_dominance performs per layer, clean.rs:697)."""
+        if self.filtering and self.dominance.dom is not None and "dkey" in dd.o:
+            self.dominance.insert_batch(*dd.exact_nodes_batch())
+
+    def _enqueue_cutset(self, node, dd):
+        """sequential.rs:403-416, vectorized: cutset extraction, ub
+        tightening and dominance probing on numpy row batches; states are
+        rebuilt from the packed keys (`problem.unpack`) only for the rows
+        that enter the fringe."""
+        in_compile_dom = (
+            self.filtering and self.dominance.dom is not None and "dkey" in dd.o
+        )
+        batch = dd.cutset_batch(with_dom=in_compile_dom)
+        keys, depths, values, ubs, pvals, psets = batch[:6]
+        if len(depths) == 0:
+            return
+        ubs = np.minimum(ubs, node.ub)
+        keep = ubs > self.best_lb
+        if in_compile_dom:
+            # insertion happened in _absorb_dominance; check-only probe
+            keep &= ~self.dominance.is_dominated_batch(depths, batch[7], batch[8], values)
+        for i in np.flatnonzero(keep):
+            state = self.problem.unpack(keys[i])
+            if not in_compile_dom:
+                res = self.dominance.is_dominated_or_insert(
+                    state, keys[i].tobytes(), int(depths[i]), int(values[i]))
+                if res.dominated:
+                    continue
+            sub = SubProblem(
+                state=state, value=int(values[i]), path_vals=pvals[i],
+                path_set=psets[i], ub=int(ubs[i]), depth=int(depths[i]),
+                key=np.ascontiguousarray(keys[i], np.int32).tobytes(),
+                dom_key=batch[7][i] if in_compile_dom else None,
+                dom_coords=batch[8][i] if in_compile_dom else None,
+            )
+            before = len(self.fringe)
+            self.fringe.push(sub)
+            self.open_by_layer[sub.depth] += len(self.fringe) - before
+
+    def _abort(self, reason, pending):
+        """sequential.rs:418-422 + parallel.rs:479-497 (bound recovery)."""
+        self.abort_proof = reason
+        for nd in pending:
+            self.best_ub = min(self.best_ub, max(nd.ub, self.best_lb))
+        self.fringe.clear()
+        self.cache.clear()
+
+
+def ParallelSolver(bundle, batch=16, **kw):
+    """Frontier parallelism (parallel.rs:287) as a K-lane superstep."""
+    return SequentialSolver(bundle, batch=batch, **kw)
