@@ -6,12 +6,18 @@
 Phases, each printing its own line(s):
   1. device and build: the card's name and power limit (nvidia-smi), then
      kernels K1 (csrc/lane_sort.cu) and K2 (csrc/backward.cu) built by
-     nvcc from the sources in this checkout;
+     nvcc from the sources in this checkout, one nvcc per source started
+     together, with ptxas's registers, shared memory and spills per kernel;
   2. each kernel against its plain PyTorch version on the card, bit-equal
      on every output, at the main path's shapes (K1: the knapsack sort-1
      and sort-2 at 128 lanes x 512 rows, a non-power-of-two row count and
-     one lane; K2: 128 lanes x 2000 layers x W=256 x D=2, and one lane),
-     with both times;
+     one lane; K2: 128 lanes x 2000 layers x W=256 x D=2, and one lane)
+     and at each route's boundaries (K1 at 32, 64 and 2048 rows and on
+     its "perm" route; K2 with fewer layers than a ring block, and on its
+     direct route at W=1100 and W=4096), each with its time, the plain version's, the
+     least time the card could take (`bound_ms`, bytes or operations) and
+     the share of it reached; K1's earlier "perm" route is timed beside
+     its "regs" route in turns wherever both take the shape;
   3. the main path at real size: a seeded uncorrelated knapsack with
      n=2000 (Pisinger's knapPI_1 family), a restricted and a relaxed
      compile of 128 root lanes at W=256 bracketing the exact DP optimum,
@@ -31,6 +37,7 @@ zeroed just before phases 3-4 and must both have grown by their end.
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -38,9 +45,35 @@ import time
 SEED = 0
 K_LANES, N_ITEMS, WIDTH = 128, 2000, 256  # bench.py:184's knapsack shape
 
+# An H100 SXM's peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and the
+# int32 rate of 64 INT32 lanes per SM x 132 SMs x 1.98 GHz, the boost clock
+# behind the data sheet's 67 TFLOP/s of float32.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+
 
 def log(*a):
     print(*a, flush=True)
+
+
+def ptxas_summary(report):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from
+    `nvcc -Xptxas -v`'s report (template arguments kept as <N>)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"_Z\d+(\w+?_kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")) if k \
+                else m.group(1)
+            out[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def time_ms(torch, fn, reps):
@@ -70,6 +103,33 @@ def max_abs_err(torch, ref, got):
         if r.numel():
             err = max(err, int((r.to(torch.int64) - g.to(torch.int64)).abs().max()))
     return err
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes' time at the memory
+    rate and the int32 operations' time at the int32 rate."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT32_OPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def sort_bound(L, C, nk, n_ops):
+    """K1: each operand read once and written once; a bitonic network of
+    C2/2 compare-exchanges per stage over log2(C2)(log2(C2)+1)/2 stages,
+    each compare-exchange 3 int32 operations (a compare and a select into
+    each output) per key word and for the row index."""
+    C2 = 1 << max(1, (C - 1).bit_length())
+    lg = C2.bit_length() - 1
+    exchanges = L * (C2 // 2) * lg * (lg + 1) // 2
+    return bound(8 * n_ops * L * C, exchanges * 3 * (nk + 1))
+
+
+def backward_bound(K, n, W, D):
+    """K2: its 11 input planes (9 B per edge, 20 B per node), 4 output
+    planes (10 B per node) and the carries' initial rows, each byte once;
+    the int32 operations of csrc/backward.cu's sweep_layer, 14 per edge
+    and 30 per node."""
+    C = W * D
+    return bound(K * n * (9 * C + 30 * W) + K * (8 * W + 4), K * n * (14 * C + 30 * W))
 
 
 def sort_case(torch, gen, L, C, nk, npay, dev):
@@ -105,44 +165,74 @@ def backward_case(torch, gen, K, n, W, D, dev):
 
 
 def phase_kernels(torch, dev):
-    """Phase 2: K1 and K2 against their plain versions on the card."""
+    """Phase 2: K1 and K2 against their plain versions on the card.
+    Returns {(kernel, case): row}, each row the case's JSON line."""
     from ddo_tpu_torch.engine import backward as bwd
     from ddo_tpu_torch.ops import sort as srt
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     rows = {}
+    # K1: the main path's sorts, then each route's boundaries
     for label, L, C, nk, npay in [("sort1", K_LANES, WIDTH * 2, 4, 4),
                                   ("sort2", K_LANES, WIDTH * 2, 4, 0),
                                   ("non_pow2", 16, 300, 3, 2),
-                                  ("one_lane", 1, WIDTH * 2, 4, 4)]:
+                                  ("one_lane", 1, WIDTH * 2, 4, 4),
+                                  ("rows_32", K_LANES, 32, 4, 4),
+                                  ("rows_64", K_LANES, 64, 4, 4),
+                                  ("rows_2048", K_LANES, 2048, 4, 4),
+                                  ("keys_9", 16, 300, 9, 2)]:
         ops = sort_case(torch, gen, L, C, nk, npay, dev)
         ref = srt.multi_sort_plain(ops, nk)
-        got = srt.multi_sort_cuda(ops, nk)
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, ref, got)
-        if err or not all(torch.equal(r, g) for r, g in zip(ref, got)):
-            raise AssertionError(f"K1 {label} disagrees with its plain version")
-        ms = time_ms(torch, lambda: srt.multi_sort_cuda(ops, nk), 50)
+        route = srt.lane_sort_route(nk, C)
+        # both routes where both apply, each held to the plain version
+        routes = ["regs", "perm"] if route == "regs" else [route]
+        for r_ in routes:
+            got = srt.multi_sort_cuda(ops, nk, route=r_)
+            torch.cuda.synchronize()
+            err = max_abs_err(torch, ref, got)
+            if err or not all(torch.equal(r, g) for r, g in zip(ref, got)):
+                raise AssertionError(f"K1 {label} ({r_}) disagrees with its plain version")
+        # in turns (old, new, new, old), so that both come from one card
+        ms = {r_: [] for r_ in routes}
+        for r_ in routes + routes[::-1]:
+            ms[r_].append(time_ms(torch, lambda: srt.multi_sort_cuda(ops, nk, route=r_), 50))
         plain_ms = time_ms(torch, lambda: srt.multi_sort_plain(ops, nk), 20)
-        rows[("lane_sort", label)] = (err, ms, plain_ms)
-        log(json.dumps({"phase": "kernel", "kernel": "lane_sort", "case": label,
-                        "shape": [L, C], "keys": nk, "payloads": npay,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}))
-    for label, K in [("main", K_LANES), ("one_lane", 1)]:
-        args = backward_case(torch, gen, K, N_ITEMS, WIDTH, 2, dev)
+        b_ms, b_by = sort_bound(L, C, nk, nk + npay)
+        new_ms = sum(ms[route]) / len(ms[route])
+        row = {"phase": "kernel", "kernel": "lane_sort", "case": label, "route": route,
+               "shape": [L, C], "keys": nk, "payloads": npay, "max_abs_err": err,
+               "ms": new_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "share_of_bound": b_ms / new_ms}
+        if route == "regs":
+            row["perm_route_ms"] = sum(ms["perm"]) / len(ms["perm"])
+        rows[("lane_sort", label)] = row
+        log(json.dumps(row))
+    # K2: the main path's sweeps, then fewer layers than a ring block, and
+    # the direct route (W not a multiple of 16; W too large for the ring)
+    for label, K, n, W, D, reps in [("main", K_LANES, N_ITEMS, WIDTH, 2, 10),
+                                    ("one_lane", 1, N_ITEMS, WIDTH, 2, 10),
+                                    ("layers_3", K_LANES, 3, WIDTH, 2, 50),
+                                    ("width_1100", 8, 50, 1100, 3, 20),
+                                    ("direct", 4, 50, 4096, 2, 20)]:
+        args = backward_case(torch, gen, K, n, W, D, dev)
         ref = bwd.backward_scans(*args)
         got = bwd.fused_backward_cuda(*args)
         torch.cuda.synchronize()
         err = max_abs_err(torch, ref, got)
         if err or not all(torch.equal(r, g) for r, g in zip(ref, got)):
             raise AssertionError(f"K2 {label} disagrees with its plain version")
-        ms = time_ms(torch, lambda: bwd.fused_backward_cuda(*args), 10)
+        ms = time_ms(torch, lambda: bwd.fused_backward_cuda(*args), reps)
         plain_ms = time_ms(torch, lambda: bwd.backward_scans(*args), 2)
-        rows[("fused_backward", label)] = (err, ms, plain_ms)
-        log(json.dumps({"phase": "kernel", "kernel": "fused_backward", "case": label,
-                        "shape": [K, N_ITEMS, WIDTH, 2], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms}))
+        b_ms, b_by = backward_bound(K, n, W, D)
+        block = bwd.backward_plan(W, D)[0]
+        row = {"phase": "kernel", "kernel": "fused_backward", "case": label,
+               "route": "tma" if block else "direct", "block_layers": block,
+               "shape": [K, n, W, D],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "share_of_bound": b_ms / ms}
+        rows[("fused_backward", label)] = row
+        log(json.dumps(row))
         del args, ref, got
     return rows
 
@@ -309,6 +399,7 @@ def main():
     dev = torch.device("cuda", 0)
     from ddo_tpu_torch.engine import backward as bwd
     from ddo_tpu_torch.ops import sort as srt
+    from ddo_tpu_torch.utils import cuda_build
 
     # ---- 1. device and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -318,9 +409,13 @@ def main():
     log(json.dumps({"phase": "device", "torch": torch.__version__,
                     "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)}))
     t0 = time.perf_counter()
+    cuda_build.build("lane_sort", "backward")
     srt._lib()
     bwd._lib()
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}))
+    for name in ("lane_sort", "backward"):
+        log(json.dumps({"phase": "ptxas", "source": f"ddo_tpu_torch/csrc/{name}.cu",
+                        "kernels": ptxas_summary(cuda_build.ptxas_report(name))}))
 
     # ---- 2. kernels against their plain versions
     rows = phase_kernels(torch, dev)
@@ -342,11 +437,17 @@ def main():
         ("fused_backward", "ddo_tpu_torch/csrc/backward.cu",
          "ddo_tpu/engine/backward.py:346", "main"),
     ]:
-        err = max(v[0] for k, v in rows.items() if k[0] == name)
-        _, ms, plain_ms = rows[(name, main_case)]
+        main = rows[(name, main_case)]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": max(v["max_abs_err"] for k, v in rows.items()
+                                           if k[0] == name),
+                        "ms": main["ms"], "plain_ms": main["plain_ms"],
+                        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                        "share_of_bound": main["share_of_bound"],
+                        # no single PyTorch call sorts lanes lexicographically
+                        # on several keys with payloads, or runs the sweep
+                        "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,7 @@ def maximize(
     batch: int = 1,
     dominance=None,
     *,
-    device,
+    device="cuda",
 ) -> Solution:
     """Solve `problem` to proved optimality (or until `timeout` seconds).
 
@@ -49,8 +49,9 @@ def maximize(
     last-exact-layer vs frontier cutset, `use_cache` the threshold cache,
     `dedup` the no-duplicate fringe, `width` a FixedWidth override
     (default: number of unassigned variables, lib.rs:138-146).  `batch`
-    is how many subproblems one superstep compiles, `device` (required:
-    "cuda" for the kernels, "cpu" for the plain versions) where.
+    is how many subproblems one superstep compiles, `device` where:
+    "cuda" (the default) runs the kernels and raises without a card,
+    "cpu" runs the plain versions.
     """
     solver = SequentialSolver(
         ModelBundle(problem, relax, ranking),

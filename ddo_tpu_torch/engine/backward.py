@@ -9,7 +9,9 @@ dimension where ddo_tpu vmaps):
   * `backward_scans` — the plain PyTorch version, a Python loop over
     layers vectorized over lanes and slots;
   * `fused_backward_cuda` — kernel K2 (`csrc/backward.cu`): one CTA per
-    lane with the layer loop inside the kernel;
+    lane with the layer loop inside the kernel, the next block of layers'
+    inputs fetched into shared memory by the TMA while a block computes
+    (`backward_plan` sizes the blocks);
   * `fused_backward` — K2 for CUDA tensors, `backward_scans` for CPU ones.
 
 All return, for layers 0..n-1: (vb [K, n, W] i32, mk [K, n, W] bool,
@@ -109,11 +111,40 @@ def backward_scans(E_child, E_cost, E_valid, S_val, S_rub, cutflag, S_exact,
     return vb, mk, th, hs
 
 
+#: layers per block of K2's ring, most first
+BLOCK_LAYERS = (16, 8, 4, 2, 1)
+
+
+def backward_plan(W: int, D: int):
+    """K2's route for node width W and D out-edges per node: (B, layout).
+
+    B is the most layers per block (BLOCK_LAYERS) for which two blocks of
+    the 11 input planes fit one block's shared memory beside the 16*W
+    bytes of carries, when every row is a multiple of 16 bytes (W % 16 ==
+    0) so the TMA can copy it; else 0, the direct route.  `layout` is a
+    ring slot's byte offset of each plane's B rows, in the order of
+    csrc/backward.cu's LayerRows, then the slot's size.  Raises when the
+    carries alone exceed shared memory."""
+    carries = 16 * W
+    if carries > cuda_build.SMEM_PER_BLOCK:
+        raise ValueError(f"fused_backward: W={W} carries exceed the shared memory of "
+                         "one block")
+    if W % 16 == 0:
+        C = W * D
+        rows = [4 * C, 4 * C] + [4 * W] * 4 + [C] + [W] * 4
+        for B in BLOCK_LAYERS:
+            layout = [B * sum(rows[:i]) for i in range(len(rows) + 1)]
+            if carries + 2 * layout[-1] + 16 <= cuda_build.SMEM_PER_BLOCK:
+                return B, layout
+    return 0, [0] * 12
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cuda_build.load("backward")
-    lib.fused_backward.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.fused_backward.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p]
     lib.fused_backward.restype = ctypes.c_int
     return lib
 
@@ -153,16 +184,17 @@ def fused_backward_cuda(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
     th = torch.empty_like(vb)
     mk = torch.empty((K, n, W), dtype=torch.uint8, device=dev)
     hs = torch.empty_like(mk)
+    block, layout = backward_plan(W, C // W)
+    if block and any(t.data_ptr() % 16 for _, t, _, _ in spec[:11]):
+        block = 0  # a bulk copy needs 16-byte aligned planes
     if K and n:
         ptrs = (ctypes.c_int64 * 18)(*[t.data_ptr() for _, t, _, _ in spec],
                                      vb.data_ptr(), mk.data_ptr(),
                                      th.data_ptr(), hs.data_ptr())
+        ring = (ctypes.c_int * len(layout))(*layout)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            status = _lib().fused_backward(ptrs, K, n, W, C // W, stream)
-        if status == -1:
-            raise ValueError(f"fused_backward: W={W} carries exceed the shared "
-                             "memory of one block")
+            status = _lib().fused_backward(ptrs, ring, block, K, n, W, C // W, stream)
         cuda_build.check(status, "fused_backward")
         KERNEL_LAUNCHES += 1
     return vb, mk.view(torch.bool), th, hs.view(torch.bool)

@@ -106,7 +106,8 @@ def _argmax_first(x):
 
 
 def _sort(ops, num_keys):
-    return sort_ops.multi_sort([o.to(I32).contiguous() for o in ops], num_keys)
+    # K1 reads strided operands: no copy beyond the int32 casts
+    return sort_ops.multi_sort([o.to(I32) for o in ops], num_keys)
 
 
 def _cols(fn, states, lead):
@@ -872,17 +873,21 @@ def paths_batch_multi(planes: _BatchPlanes, lanes, layers, slots, roots):
 
 
 class DDCompiler:
-    """Entry point: compiles restricted/relaxed/exact DDs for a model on an
-    explicit `device`."""
+    """Entry point: compiles restricted/relaxed/exact DDs for a model on
+    `device`: the card ("cuda", the default, runs the kernels; without a
+    card it raises) or "cpu" (the plain versions)."""
 
     def __init__(self, bundle: ModelBundle, width: int,
                  cutset_type: CutsetType = CutsetType.LAST_EXACT_LAYER,
-                 dominance=None, *, device):
+                 dominance=None, *, device="cuda"):
         self.bundle = bundle
         self.width = width
         self.cutset_type = cutset_type
         self.dominance = dominance
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DDCompiler: no CUDA device for device='cuda'; pass "
+                               "device='cpu' for the plain PyTorch route")
         order = bundle.problem.var_order()
         if order is None:
             raise NotImplementedError(

@@ -9,10 +9,12 @@ unique final key, so the order is total and any correct sort gives the
 same result.
 
 On a CUDA tensor every entry point launches kernel K1
-(`csrc/lane_sort.cu`, one CTA per lane, bitonic network over an index
-permutation in shared memory) or raises; on a CPU tensor it runs the
-plain version `multi_sort_plain` (successive stable `torch.sort`s, last
-key first).
+(`csrc/lane_sort.cu`, one CTA per lane) or raises; K1 has two routes,
+chosen by shape (`lane_sort_route`): "regs", a bitonic network held in
+registers and warp shuffles, and "perm", a network over an index
+permutation in shared memory for more keys or longer lanes.  On a CPU
+tensor it runs the plain version `multi_sort_plain` (successive stable
+`torch.sort`s, last key first).
 """
 
 from __future__ import annotations
@@ -28,6 +30,22 @@ from ddo_tpu_torch.utils import cuda_build
 #: path went through the kernel)
 KERNEL_LAUNCHES = 0
 
+#: operands one launch takes (LS_MAX_OPS in csrc/lane_sort.cu)
+MAX_OPERANDS = 64
+#: the "regs" route's largest key count and padded lane length
+#: (LS_NK_MAX, LS_C2_MAX: 1024 threads x 2 rows)
+REGS_MAX_KEYS = 8
+REGS_MAX_ROWS = 2048
+
+
+class _SortArgs(ctypes.Structure):
+    """`SortArgs` of csrc/lane_sort.cu: each operand's pointer and its
+    lane and row strides (elements), handed to the kernel by value."""
+
+    _fields_ = [("ptr", ctypes.c_void_p * MAX_OPERANDS),
+                ("rs", ctypes.c_int64 * MAX_OPERANDS),
+                ("cs", ctypes.c_int64 * MAX_OPERANDS)]
+
 
 def multi_sort_plain(operands, num_keys):
     """Plain PyTorch version: a stable lexsort (stable sorts from the last
@@ -40,43 +58,66 @@ def multi_sort_plain(operands, num_keys):
     return tuple(o.gather(1, perm) for o in operands)
 
 
+def lane_sort_route(num_keys: int, C: int) -> str:
+    """K1's route for `num_keys` keys over lanes of C rows: "regs" when
+    the keys fit its registers (num_keys <= REGS_MAX_KEYS) and C, padded
+    to a power of two, to its threads (<= REGS_MAX_ROWS); else "perm"
+    while a lane's keys and permutation fit one block's shared memory.
+    Raises beyond that (a radix sort for such lanes is not written)."""
+    C2 = 1 << max(1, (C - 1).bit_length())
+    if num_keys <= REGS_MAX_KEYS and C2 <= REGS_MAX_ROWS:
+        return "regs"
+    if (num_keys + 1) * C2 * 4 <= cuda_build.SMEM_PER_BLOCK:
+        return "perm"
+    raise ValueError(f"lane_sort: {num_keys} keys of C={C} rows (padded to a power of "
+                     "two) exceed the shared memory of one block")
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cuda_build.load("lane_sort")
-    lib.lane_sort.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p]
-    lib.lane_sort.restype = ctypes.c_int
+    for fn in (lib.lane_sort_regs, lib.lane_sort_perm):
+        fn.argtypes = [ctypes.POINTER(_SortArgs), ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def multi_sort_cuda(operands, num_keys):
-    """Kernel K1 on CUDA tensors; raises on what the kernel does not take."""
+def multi_sort_cuda(operands, num_keys, route=None):
+    """Kernel K1 on CUDA tensors (any strides), in one launch and one
+    output allocation; raises on what the kernel does not take.  `route`
+    ("regs" or "perm") overrides `lane_sort_route`'s choice, so that a
+    comparison can run both on one shape."""
     global KERNEL_LAUNCHES
+    n = len(operands)
+    if n > MAX_OPERANDS:
+        raise ValueError(f"lane_sort: {n} operands exceed the {MAX_OPERANDS} one launch takes")
+    if not 1 <= num_keys <= n:
+        raise ValueError(f"lane_sort: num_keys={num_keys} not in [1, {n}]")
     first = operands[0]
     L, C = first.shape
+    planned = lane_sort_route(num_keys, C)
+    route = route or planned
+    if route not in ("regs", "perm") or (route == "regs" and planned != "regs"):
+        raise ValueError(f"lane_sort: route {route!r} does not take {num_keys} keys "
+                         f"of C={C} rows")
     for o in operands:
         if not o.is_cuda or o.device != first.device:
             raise ValueError("lane_sort: every operand must be on one CUDA device")
         if o.dtype != torch.int32 or tuple(o.shape) != (L, C):
             raise ValueError(f"lane_sort: operands must be int32 [{L}, {C}]")
-    n = len(operands)
-    if not 1 <= num_keys <= n:
-        raise ValueError(f"lane_sort: num_keys={num_keys} not in [1, {n}]")
-    # the kernel reads one contiguous [n, L, C] array, any n
-    stacked = torch.stack(operands)
-    out = torch.empty_like(stacked)
+    out = torch.empty((n, L, C), dtype=torch.int32, device=first.device)
     if L == 0 or C == 0:
         return tuple(out.unbind(0))
+    args = _SortArgs()
+    for t, o in enumerate(operands):
+        args.ptr[t] = o.data_ptr()
+        args.rs[t], args.cs[t] = o.stride()
+    fn = _lib().lane_sort_regs if route == "regs" else _lib().lane_sort_perm
     with torch.cuda.device(first.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = _lib().lane_sort(stacked.data_ptr(), out.data_ptr(), n, num_keys, L, C,
-                                  stream)
-    if status == -1:
-        raise ValueError(
-            f"lane_sort: {num_keys} keys of C={C} rows (padded to a power of "
-            "two) exceed the shared memory of one block")
-    cuda_build.check(status, "lane_sort")
+        status = fn(ctypes.byref(args), out.data_ptr(), n, num_keys, L, C, stream)
+    cuda_build.check(status, f"lane_sort ({route})")
     KERNEL_LAUNCHES += 1
     return tuple(out.unbind(0))
 

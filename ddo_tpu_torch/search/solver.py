@@ -86,7 +86,7 @@ class SequentialSolver:
         in_compile_filtering: bool = True,
         compile_chunk: Optional[int] = None,
         *,
-        device,
+        device="cuda",
     ):
         self.bundle = bundle
         problem = bundle.problem

@@ -3,15 +3,18 @@
 Each `csrc/<name>.cu` has a plain C interface and becomes its own shared
 library, compiled by `nvcc` for Hopper (`sm_90a`) into
 `ddo_tpu_torch/build/` and loaded with `ctypes`.  The library's file name
-carries a hash of its source, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing here runs at import time: the CPU tests
-import every module on hosts without `nvcc`.
+carries a hash of its source and of every `csrc/*.cuh`, so an edited
+source is rebuilt and a stale library is never loaded.  `nvcc -Xptxas -v`
+reports each kernel's registers, shared memory and spills; the report is
+kept beside the library (`ptxas_report`).  Nothing here runs at import
+time: the CPU tests import every module on hosts without `nvcc`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -23,7 +26,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+
+#: shared memory one block of an sm_90 card may opt into (bytes)
+SMEM_PER_BLOCK = 232_448
 
 
 def _nvcc() -> str:
@@ -36,29 +42,62 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _paths(name: str):
+    """(source, library, ptxas report) of kernel `name`."""
+    src = os.path.join(CSRC, name + ".cu")
+    h = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    stem = os.path.join(BUILD, f"lib{name}_{h.hexdigest()[:16]}")
+    return src, stem + ".so", stem + ".ptxas.txt"
+
+
+def build(*names: str):
+    """Compile every named kernel whose library is missing, one `nvcc`
+    per source, all started together; raise if any fails."""
+    jobs = []
+    try:
+        for name in names:
+            src, lib, report = _paths(name)
+            if os.path.exists(lib):
+                continue
+            os.makedirs(BUILD, exist_ok=True)
+            # compile into a temporary name and rename: a concurrent or
+            # interrupted build never leaves a half-written library behind
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+            os.close(fd)
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((src, lib, report, tmp, proc))
+        for src, lib, report, tmp, proc in jobs:
+            output, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {src}:\n{output}")
+            with open(report, "w") as f:
+                f.write(output)
+            os.replace(tmp, lib)
+    finally:
+        for _, _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The library built from `csrc/<name>.cu`, compiled if missing."""
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib = os.path.join(BUILD, f"lib{name}_{digest}.so")
-    if not os.path.exists(lib):
-        os.makedirs(BUILD, exist_ok=True)
-        # compile into a temporary name and rename: a concurrent or
-        # interrupted build never leaves a half-written library behind
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-        os.close(fd)
-        try:
-            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src], check=True,
-                           capture_output=True, text=True)
-            os.replace(tmp, lib)
-        except subprocess.CalledProcessError as e:
-            raise RuntimeError(f"nvcc failed on {src}:\n{e.stderr}") from e
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return ctypes.CDLL(lib)
+    build(name)
+    return ctypes.CDLL(_paths(name)[1])
+
+
+def ptxas_report(name: str) -> str:
+    """`nvcc -Xptxas -v`'s report for kernel `name` (after `build`)."""
+    with open(_paths(name)[2]) as f:
+        return f.read()
 
 
 def check(status: int, what: str):

@@ -113,18 +113,33 @@ def test_maximize_timeout_zero_aborts():
 
 
 def test_device_is_never_implicit():
-    """Every entry point takes its device from the caller: none falls back
-    to the CPU's plain versions on its own."""
+    """Every entry point runs on the card unless the caller asks for the
+    CPU: none falls back to the CPU's plain versions on its own, and
+    without a card each one raises."""
     pb = tk.generate_uncorrelated(10, 100, 1, 4, seed=3)
     bundle = tt.ModelBundle(pb, tk.KPRelax(pb), tk.KPRanking())
-    with pytest.raises(TypeError, match="device"):
-        tt.maximize(pb, tk.KPRelax(pb), tk.KPRanking())
-    with pytest.raises(TypeError, match="device"):
-        tt.SequentialSolver(bundle)
-    with pytest.raises(TypeError, match="device"):
-        tt.DefaultSolver(bundle)
-    with pytest.raises(TypeError, match="device"):
-        tt.DDCompiler(bundle, 8)
+    makers = [lambda: tt.SequentialSolver(bundle).compiler,
+              lambda: tt.DefaultSolver(bundle).compiler,
+              lambda: tt.DDCompiler(bundle, 8)]
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+    assert tt.DDCompiler(bundle, 8, device="cpu").device.type == "cpu"
+
+
+def test_maximize_defaults_to_card():
+    """`maximize` without `device` solves on the card, and raises where
+    there is none."""
+    pb = tk.generate_uncorrelated(12, 100, 1, 4, seed=4)
+    if torch.cuda.is_available():
+        sol = tt.maximize(pb, tk.KPRelax(pb), tk.KPRanking())
+        assert sol.objective == tk.dp_optimum(pb.capacity, pb.profit, pb.weight)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tt.maximize(pb, tk.KPRelax(pb), tk.KPRanking())
 
 
 def test_time_budget_engages_chunked_compiles():
