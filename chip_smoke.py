@@ -9,15 +9,18 @@ Phases, each printing its own line(s):
      nvcc from the sources in this checkout, one nvcc per source started
      together, with ptxas's registers, shared memory and spills per kernel;
   2. each kernel against its plain PyTorch version on the card, bit-equal
-     on every output, at the main path's shapes (K1: the knapsack sort-1
-     and sort-2 at 128 lanes x 512 rows, a non-power-of-two row count and
-     one lane; K2: 128 lanes x 2000 layers x W=256 x D=2, and one lane)
-     and at each route's boundaries (K1 at 32, 64 and 2048 rows and on
-     its "perm" route; K2 with fewer layers than a ring block, and on its
-     direct route at W=1100 and W=4096), each with its time, the plain version's, the
-     least time the card could take (`bound_ms`, bytes or operations) and
-     the share of it reached; K1's earlier "perm" route is timed beside
-     its "regs" route in turns wherever both take the shape;
+     on every output, at the main paths' shapes (K1: the knapsack sort-1
+     and sort-2 at 128 lanes x 512 rows, the MISP sort-1 with 10 keys + 11
+     payloads and sort-2 with 11 keys on the "perm" route, the max2sat
+     and max-cut sorts at 16 lanes x 16 rows, a non-power-of-two row count
+     and one lane; K2: 128 lanes x 2000 layers x W=256 x D=2, one lane,
+     the MISP compile's 200 layers and the max2sat and max-cut sweeps) and at
+     each route's boundaries (K1 at 32, 64 and 2048 rows and on its "perm"
+     route; K2 with fewer layers than a ring block, and on its direct
+     route at W=1100 and W=4096), each with its time, the plain version's,
+     the least time the card could take (`bound_ms`, bytes or operations)
+     and the share of it reached; K1's earlier "perm" route is timed
+     beside its "regs" route in turns wherever both take the shape;
   3. the main path at real size: a seeded uncorrelated knapsack with
      n=2000 (Pisinger's knapPI_1 family), a restricted and a relaxed
      compile of 128 root lanes at W=256 bracketing the exact DP optimum,
@@ -29,13 +32,35 @@ Phases, each printing its own line(s):
      small compile whose planes must equal the CPU path's;
   4. `ddo_tpu_torch.maximize` proving the same n=2000 instance's DP
      optimum at width 256, batch 128, cache and dominance on, gap 0;
+  5. small compiles of 3 or 4 lanes rooted at different depths whose every
+     plane must equal the CPU path's: a 40-vertex MISP graph, golomb with
+     7 marks (a domain of 26 values, so lanes of 832 candidates with 9
+     keys on K1's "perm" route) and talentsched with 10 scenes;
+  6. the MISP path (a dynamic variable order per lane, long arcs, bitset
+     states, the device-side row extraction): a seeded G(200, 0.1) graph
+     with unit weights (the size class of the DIMACS brock200_1 and
+     c-fat200-1 graphs), a restricted and a relaxed compile of 128 root
+     lanes at W=256, each followed by the solver's compact extraction and
+     then its plane extraction of the same batch, each on a view that has
+     brought nothing to the host before its timer starts: the same rows in
+     the same order, the same fringe and cache, both routes' bytes to the
+     host and times; then the relaxed bound over the restricted value on
+     every lane and the restricted solution checked as an independent set
+     on the host;
+  7. `maximize` to gap 0 on a seeded G(60, 0.2) graph against an exact
+     branch and bound over Python-int bitmasks;
+  8. `maximize` to gap 0 on a seeded max2sat and then on a seeded max-cut
+     instance, each against brute force over all assignments;
 then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Every check raises on failure, so the script exits non-zero and prints no
-result; without CUDA it exits non-zero at once.  Launch counters are
-zeroed just before phases 3-4 and must both have grown by their end.
+result; without CUDA it exits non-zero at once.  Four paths have launch
+counts of their own, each zeroed just before the path and read just after
+it: knapsack (phases 3-4), MISP (6-7), max2sat and max-cut (8, one count
+each); both kernels must have launched in each.  Phase 5 is in no count.
 """
 
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -44,6 +69,8 @@ import time
 
 SEED = 0
 K_LANES, N_ITEMS, WIDTH = 128, 2000, 256  # bench.py:184's knapsack shape
+MISP_N, MISP_P = 200, 0.1  # the MISP compile's graph: G(n, p), unit weights
+SMALL_N, SMALL_W, SMALL_BATCH = 16, 8, 16  # the max2sat and max-cut runs
 
 # An H100 SXM's peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and the
 # int32 rate of 64 INT32 lanes per SM x 132 SMs x 1.98 GHz, the boost clock
@@ -176,6 +203,13 @@ def phase_kernels(torch, dev):
     # K1: the main path's sorts, then each route's boundaries
     for label, L, C, nk, npay in [("sort1", K_LANES, WIDTH * 2, 4, 4),
                                   ("sort2", K_LANES, WIDTH * 2, 4, 0),
+                                  # MISP at 200 vertices: 7 state words
+                                  ("misp_sort1", K_LANES, WIDTH * 2, 10, 11),
+                                  ("misp_sort2", K_LANES, WIDTH * 2, 11, 0),
+                                  # max2sat and max-cut at 16 variables: 16
+                                  # state words, one ranking column
+                                  ("small_sort1", SMALL_BATCH, SMALL_W * 2, SMALL_N + 3, 3),
+                                  ("small_sort2", SMALL_BATCH, SMALL_W * 2, 4, 0),
                                   ("non_pow2", 16, 300, 3, 2),
                                   ("one_lane", 1, WIDTH * 2, 4, 4),
                                   ("rows_32", K_LANES, 32, 4, 4),
@@ -212,6 +246,8 @@ def phase_kernels(torch, dev):
     # the direct route (W not a multiple of 16; W too large for the ring)
     for label, K, n, W, D, reps in [("main", K_LANES, N_ITEMS, WIDTH, 2, 10),
                                     ("one_lane", 1, N_ITEMS, WIDTH, 2, 10),
+                                    ("misp", K_LANES, MISP_N, WIDTH, 2, 20),
+                                    ("small", SMALL_BATCH, SMALL_N, SMALL_W, 2, 50),
                                     ("layers_3", K_LANES, 3, WIDTH, 2, 50),
                                     ("width_1100", 8, 50, 1100, 3, 20),
                                     ("direct", 4, 50, 4096, 2, 20)]:
@@ -313,24 +349,32 @@ def phase_compile(torch, dev, n=N_ITEMS, K=K_LANES, W=WIDTH):
     # incumbent, the cache rows, every exact node into the dominance
     # store; the relaxed pass's cutset for lanes whose restricted DD is
     # inexact).
-    solver = tt.SequentialSolver(
-        tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()), width_heu=tt.FixedWidth(W),
-        cache=tt.SimpleCache(), fringe=tt.NoDupFringe(), batch=K, device=dev,
-        dominance=tt.SimpleDominanceChecker(kp.KPDominance(), pb.nb_variables))
-    solver.cache.initialize(pb)
-    solver.dominance.prime(pb)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    solver._process_batch_fused(roots, [W] * K)
-    st = solver.stats
-    if solver.best_lb > opt or (len(solver.fringe) == 0 and solver.best_lb != opt):
-        raise AssertionError(f"superstep incumbent {solver.best_lb} vs optimum {opt}")
-    log(json.dumps({"phase": "superstep", "lanes": K, "n": n, "width": W,
-                    "expanded": solver.expanded_nodes, "compile_s": st.restricted_s,
-                    "extraction_s": st.host_s,
-                    "peak_bytes": torch.cuda.max_memory_allocated(),
-                    "incumbent": solver.best_lb, "fringe": len(solver.fringe)}))
-    del solver
+    # Run twice on the same lanes: with the solver's default extraction on
+    # the card (the rows selected on the device, `engine/extract.py`) and
+    # with the plane route (whole planes to the host, rows selected there).
+    for compact in (True, False):
+        solver = tt.SequentialSolver(
+            tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()), width_heu=tt.FixedWidth(W),
+            cache=tt.SimpleCache(), fringe=tt.NoDupFringe(), batch=K, device=dev,
+            dominance=tt.SimpleDominanceChecker(kp.KPDominance(), pb.nb_variables))
+        if not solver._compact:
+            raise AssertionError("the compact extraction is not the card's default")
+        solver._compact = compact
+        solver.cache.initialize(pb)
+        solver.dominance.prime(pb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        solver._process_batch_fused(roots, [W] * K)
+        st = solver.stats
+        if solver.best_lb > opt or (len(solver.fringe) == 0 and solver.best_lb != opt):
+            raise AssertionError(f"superstep incumbent {solver.best_lb} vs optimum {opt}")
+        log(json.dumps({"phase": "superstep", "extraction": "compact" if compact else "plane",
+                        "lanes": K, "n": n, "width": W,
+                        "expanded": solver.expanded_nodes, "compile_s": st.restricted_s,
+                        "extraction_s": st.host_s,
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "incumbent": solver.best_lb, "fringe": len(solver.fringe)}))
+        del solver
 
     # the whole engine on the device against the CPU path (which the CPU
     # tests hold against ddo_tpu), every plane, on a small instance with
@@ -389,6 +433,318 @@ def phase_solve(torch, dev, pb, opt, W=WIDTH, batch=K_LANES):
     return sol
 
 
+def nbytes(tree):
+    """Bytes of every numpy array in a tree of dicts."""
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    return getattr(tree, "nbytes", 0)
+
+
+def misp_bundle(tt, n, p, seed):
+    from ddo_tpu_torch.models import misp as mi
+
+    pb, edges = mi.generate_gnp(n, p, seed)
+    return tt.ModelBundle(pb, mi.MispRelax(pb), mi.MispRanking(pb)), edges
+
+
+def check_independent_set(edges, weight, assignment, value, what):
+    """`assignment` (1 = taken) is an independent set of weight `value`."""
+    taken = {v for v, d in enumerate(assignment) if d == 1}
+    for a, b in edges:
+        if a in taken and b in taken:
+            raise AssertionError(f"{what}: edge {a}-{b} inside the set")
+    if sum(int(weight[v]) for v in taken) != value:
+        raise AssertionError(f"{what}: the set's weight is not {value}")
+
+
+def phase_misp_compile(torch, dev, n=MISP_N, p=MISP_P, K=K_LANES, W=WIDTH):
+    """Phase 6: the MISP path at real size.  Two solvers share every
+    compiled batch: one absorbs it by the compact route (rows selected on
+    the device), the other by the plane route (whole planes to the host),
+    and both must end with the same rows, cache and fringe."""
+    import numpy as np
+
+    import ddo_tpu_torch as tt
+
+    bundle, edges = misp_bundle(tt, n, p, SEED)
+    pb = bundle.problem
+    make = lambda: tt.SequentialSolver(bundle, width_heu=tt.FixedWidth(W), batch=K,
+                                       cache=tt.SimpleCache(), device=dev)
+    compact, plane = make(), make()
+    if dev.type == "cuda" and not compact._compact:
+        raise AssertionError("the compact extraction is not the card's default")
+    compact._compact, plane._compact = True, False
+    for s in (compact, plane):
+        s.cache.initialize(pb)
+    roots = [tt.root_subproblem(pb)] * K
+
+    def absorb(solver, batch, relaxed):
+        """The solver's own extraction of one pass, timed."""
+        t0 = time.perf_counter()
+        ex = solver._extract_batch(batch, want_cutset=relaxed) if solver._compact else None
+        if relaxed:
+            solver._absorb_relaxed(list(zip(roots, batch)), roots, batch, ex)
+        else:
+            for dd in batch:
+                solver._maybe_update_best(dd)
+                if ex is None:
+                    solver._apply_cache_updates(dd)
+            if ex is not None:
+                solver._apply_cache_compact(ex)
+        return ex, time.perf_counter() - t0
+
+    var_of, best = {}, {}
+    for label, comp in [("restricted", tt.CompilationType.RESTRICTED),
+                        ("relaxed", tt.CompilationType.RELAXED)]:
+        relaxed = label == "relaxed"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        batch = compact.compiler.compile_batch(comp, roots, tt.NEG_INF, [W] * K)
+        expanded = batch.total_expanded  # waits for the device
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        # the compact route first, then the plane route on a view of the
+        # same batch that has brought nothing to the host yet; nothing else
+        # reads either view before its bytes are counted, so each route's
+        # time covers every byte its count reports.  Where the cutset
+        # overflows its cap the compact route falls back to the plane
+        # route's cutset, and its bytes count the planes that took.
+        ex, compact_s = absorb(compact, batch, relaxed)
+        compact_bytes = nbytes(ex) + nbytes(batch._planes._np)
+        cold = compact.compiler._batch(batch.spec, roots, batch.dev, batch.actives)
+        _, plane_s = absorb(plane, cold, relaxed)
+        plane_bytes = nbytes(cold._planes._np)
+        best[label] = [dd.best_value() for dd in cold]
+        if not relaxed:
+            for k in (0, K - 1):
+                vals, _ = cold[k].best_solution()
+                check_independent_set(edges, pb.weight, vals, best[label][k],
+                                      f"restricted lane {k}")
+        # the same rows in the same order as the plane route's, lane by lane
+        lanes = [dd.cache_batch() for dd in cold]
+        m = len(ex["cache"]["depths"])
+        if sum(len(l[0]) for l in lanes) != ex["cache"]["count"]:
+            raise AssertionError(f"{label}: compact cache count differs")
+        for i, name in enumerate(("depths", "keys", "thetas", "explored")):
+            if not np.array_equal(np.concatenate([l[i] for l in lanes])[:m],
+                                  ex["cache"][name]):
+                raise AssertionError(f"{label}: compact cache rows differ in {name}")
+        cut_rows, fell_back = 0, False
+        if relaxed:
+            lanes = [dd.cutset_batch() for dd in cold if not dd.is_exact()]
+            cut_rows, m = ex["cut"]["count"], len(ex["cut"]["lanes"])
+            fell_back = cut_rows > m
+            if sum(len(l[1]) for l in lanes) != cut_rows:
+                raise AssertionError("relaxed: compact cutset count differs")
+            for name, i in dict(keys=0, layers=1, values=2, ubs=3, scores=6).items():
+                if not np.array_equal(np.concatenate([l[i] for l in lanes])[:m],
+                                      ex["cut"][name]):
+                    raise AssertionError(f"relaxed: compact cutset rows differ in {name}")
+        var_of[label] = batch._planes.get("var_of")
+        log(json.dumps({"phase": "misp_compile", "pass": label, "lanes": K, "n": n,
+                        "edges": len(edges), "width": W, "best_value": best[label][0],
+                        "expanded": expanded, "wall_s": wall,
+                        "ms_per_layer": 1e3 * wall / n,
+                        "expansions_per_s": expanded / wall, "peak_bytes": peak,
+                        "cache_rows": ex["cache"]["count"], "cutset_rows": cut_rows,
+                        "cutset_cap_overflow": fell_back,
+                        "compact_extraction_s": compact_s, "compact_d2h_bytes": compact_bytes,
+                        "plane_extraction_s": plane_s, "plane_d2h_bytes": plane_bytes,
+                        "rows_equal": True, "incumbent": compact.best_lb,
+                        "fringe": len(compact.fringe)}))
+        del batch
+    for k in range(K):
+        if best["restricted"][k] is None or best["relaxed"][k] < best["restricted"][k]:
+            raise AssertionError(f"lane {k}: relaxed bound below the restricted value")
+    if np.array_equal(var_of["restricted"], var_of["relaxed"]):
+        raise AssertionError("the two compiles branched in one order: the dynamic "
+                             "order did not follow the layers")
+    # both routes leave the same solver state behind
+    def drained(solver):
+        nodes = []
+        while len(solver.fringe):
+            nd = solver.fringe.pop()
+            nodes.append((nd.key, nd.ub, nd.depth, nd.value, nd.path_set.tobytes()))
+        return sorted(nodes)
+
+    a, b = drained(compact), drained(plane)
+    if compact.best_lb != plane.best_lb or not a or a != b:
+        raise AssertionError("compact and plane routes left different fringes")
+
+
+def phase_cpu_parity(torch, dev):
+    """Phase 5: small compiles on the device against the CPU path (which
+    the CPU tests hold against ddo_tpu), every plane, lanes rooted at
+    different depths: MISP (a dynamic order per lane, long arcs), golomb
+    (a wide domain: lanes of width x 26 candidates, 9 keys, K1's "perm"
+    route) and talentsched (two bitsets)."""
+    import numpy as np
+
+    import ddo_tpu_torch as tt
+    from ddo_tpu_torch.core.types import host_batch
+    from ddo_tpu_torch.models import golomb as go, talentsched as ta
+    from ddo_tpu_torch.ops import sort as srt
+
+    def parity(name, bundle, W, within_one=()):
+        root = tt.root_subproblem(bundle.problem)
+        cpu = tt.DDCompiler(bundle, W, tt.FRONTIER, device="cpu")
+        cut = sorted(cpu.compile(tt.CompilationType.RELAXED, root, tt.NEG_INF, 3).drain_cutset(),
+                     key=lambda s: -s.depth)
+        subs = [root] + list({s.depth: s for s in cut}.values())[:3]
+        if len({s.depth for s in subs}) < 3:
+            raise AssertionError(f"{name} fixture: lanes must be rooted at different depths")
+        planes = {}
+        for c in (tt.DDCompiler(bundle, W, tt.FRONTIER, device=dev), cpu):
+            rs, xs = c.compile_fused(subs, tt.NEG_INF, [3, 5, W, 4][:len(subs)])
+            planes[c.device.type] = [b._planes for b in (rs, xs)]
+        keys = [k for k in planes["cpu"][0]._dev if k != "state"]
+        off_by_one = 0
+        for a, b in zip(planes[dev.type], planes["cpu"]):
+            for k in keys:
+                if k in within_one:
+                    d = np.abs(a.get(k).astype(np.int64) - b.get(k))
+                    off_by_one += int((d == 1).sum())
+                    if d.max() > 1:
+                        raise AssertionError(f"{name} plane {k} differs by {d.max()} "
+                                             f"between {dev} and cpu")
+                elif not np.array_equal(a.get(k), b.get(k)):
+                    raise AssertionError(f"{name} plane {k} differs between {dev} and cpu")
+            for k, v in b.get("state").items():
+                if not np.array_equal(a.get("state")[k], v):
+                    raise AssertionError(f"{name} state plane {k} differs between {dev} and cpu")
+        st = host_batch(bundle.problem.initial_state())
+        nk = 3 + bundle.problem.pack(st).shape[1]
+        C = W * bundle.problem.domain_size
+        row = {"phase": "compile_vs_cpu", "model": name, "n": bundle.problem.nb_variables,
+               "lanes": len(subs), "root_depths": [s.depth for s in subs], "width": W,
+               "sort1": {"shape": [len(subs), C], "keys": nk,
+                         "route": srt.lane_sort_route(nk, C)},
+               "planes": len(keys), "equal": True}
+        if within_one:
+            row.update(equal=not off_by_one, within_one=list(within_one),
+                       off_by_one=off_by_one)
+        return row, subs, planes[dev.type][1]
+
+    bundle, _ = misp_bundle(tt, 40, 0.2, SEED + 1)
+    row, subs, relaxed = parity("misp", bundle, 8)
+    var_of = relaxed.get("var_of")
+    deepest = max(s.depth for s in subs)
+    if all(len(set(var_of[:, l])) == 1 for l in range(deepest, var_of.shape[1])):
+        raise AssertionError("every lane branched on the same variables")
+    if not relaxed.get("bs").any():
+        raise AssertionError("no long arc in the MISP compile")
+    log(json.dumps({**row, "lanes_differ_in_var_of": True}))
+
+    pb = go.Golomb(7)
+    row, _, _ = parity("golomb", tt.ModelBundle(pb, go.GolombRelax(pb), go.GolombRanking()), 32)
+    if row["sort1"]["route"] != "perm":
+        raise AssertionError(f"golomb fixture: sort-1 is to take the perm route: {row}")
+    log(json.dumps(row))
+
+    # talentsched's rough upper bound is a float32 sum rounded up: the card
+    # adds in another order than the CPU, so where the sum is an integer
+    # the bound may differ by one.  Both are admissible (the model adds a
+    # slack); every other plane must be equal, and `maximize` on the card
+    # must prove the optimum that brute force over all orders finds.
+    pb = ta.generate_random(10, 4, SEED)
+    row, _, _ = parity("talentsched", tt.ModelBundle(pb, ta.TalentSchedRelax(pb),
+                                                     ta.TalentSchedRanking()), 16,
+                       within_one=("rub",))
+    log(json.dumps(row))
+    pb = ta.generate_random(7, 3, SEED)
+    opt = None
+    for order in itertools.permutations(range(7)):
+        pay = 0
+        for a in range(pb.nb_actors):
+            on = [i for i, s_ in enumerate(order) if pb.actor_mat[a][s_]]
+            pay += int(pb.cost[a]) * sum(int(pb.duration[order[i]])
+                                         for i in range(min(on), max(on) + 1))
+        opt = pay if opt is None else min(opt, pay)
+    sol = tt.maximize(pb, ta.TalentSchedRelax(pb), ta.TalentSchedRanking(), use_cache=True,
+                      width=8, batch=4, device=dev)
+    if sol.aborted or sol.gap != 0 or sol.objective != -opt:
+        raise AssertionError(f"maximize(talentsched): {sol} vs exact optimum {-opt}")
+    log(json.dumps({"phase": "solve", "model": "talentsched", "n": 7, "optimum": -opt,
+                    "objective": sol.objective, "gap": sol.gap,
+                    "time_to_optimum_s": sol.duration, "width": 8, "batch": 4}))
+
+
+def exact_mis(n, edges, weight):
+    """The maximum weight of an independent set, by branch and bound over
+    Python-int bitmasks: branch on the candidate of largest degree, bound
+    by the candidates' total weight."""
+    adj = [0] * n
+    for a, b in edges:
+        adj[a] |= 1 << b
+        adj[b] |= 1 << a
+
+    def members(mask):
+        while mask:
+            low = mask & -mask
+            yield low.bit_length() - 1
+            mask ^= low
+
+    best = 0
+
+    def search(cand, value):
+        nonlocal best
+        rest = sum(weight[v] for v in members(cand))
+        if value + rest <= best:
+            return
+        v = max(members(cand), key=lambda u: bin(adj[u] & cand).count("1"), default=None)
+        if v is None or not adj[v] & cand:  # no edge left among the candidates
+            best = value + rest
+            return
+        search(cand & ~adj[v] & ~(1 << v), value + weight[v])
+        search(cand & ~(1 << v), value)
+
+    search((1 << n) - 1, 0)
+    return best
+
+
+def phase_small_solve(torch, dev, model):
+    """Phases 7 and 8: `maximize` to a proved optimum on `model` ("misp",
+    "max2sat" or "mcp"), against an exact optimum computed on the host."""
+    import numpy as np
+
+    import ddo_tpu_torch as tt
+    from ddo_tpu_torch.models import max2sat as ms, mcp as mc
+
+    def solve(pb, relax, ranking, opt, **kw):
+        sol = tt.maximize(pb, relax, ranking, use_cache=True, device=dev, **kw)
+        if sol.aborted or sol.gap != 0 or sol.objective != opt:
+            raise AssertionError(f"maximize({model}): {sol} vs exact optimum {opt}")
+        log(json.dumps({"phase": "solve", "model": model, "n": pb.nb_variables,
+                        "optimum": opt, "objective": sol.objective, "gap": sol.gap,
+                        "time_to_optimum_s": sol.duration, **kw}))
+        return sol
+
+    if model == "misp":
+        bundle, edges = misp_bundle(tt, 60, 0.2, SEED)
+        pb = bundle.problem
+        opt = exact_mis(60, edges, [int(w) for w in pb.weight])
+        sol = solve(pb, bundle.relaxation, bundle.ranking, opt, batch=16)
+        check_independent_set(edges, pb.weight, sol.assignment, opt, "maximize(misp)")
+        return
+    n = SMALL_N
+    bits = (np.arange(1 << n)[:, None] >> np.arange(n)) & 1  # every assignment
+    if model == "max2sat":
+        pb, clauses = ms.generate_random(n, 60, SEED)
+        sat = np.zeros(1 << n, np.int64)
+        for (a, b), w in clauses.items():
+            sat += w * ((bits[:, abs(a) - 1] == (a > 0)) | (bits[:, abs(b) - 1] == (b > 0)))
+        solve(pb, ms.Max2SatRelax(pb), ms.Max2SatRanking(), int(sat.max()),
+              width=SMALL_W, batch=SMALL_BATCH)
+    else:
+        pb, _ = mc.generate_random(n, 0.5, SEED)
+        side = 1 - 2 * bits[bits[:, 0] == 0]  # vertex 0 pinned; +1 / -1 sides
+        total = int(np.triu(pb.w, 1).sum())
+        cut = (total - ((side @ pb.w) * side).sum(axis=1) // 2) // 2
+        solve(pb, mc.McpRelax(pb), mc.McpRanking(), int(cut.max()), lel=False,
+              width=SMALL_W, batch=SMALL_BATCH)
+
+
 def main():
     import torch
 
@@ -420,34 +776,58 @@ def main():
     # ---- 2. kernels against their plain versions
     rows = phase_kernels(torch, dev)
 
-    # ---- 3 + 4. the main path; only its launches are counted
-    srt.KERNEL_LAUNCHES = 0
-    bwd.KERNEL_LAUNCHES = 0
-    pb, opt = phase_compile(torch, dev)
-    phase_solve(torch, dev, pb, opt)
-    launches = {"lane_sort": srt.KERNEL_LAUNCHES, "fused_backward": bwd.KERNEL_LAUNCHES}
-    log(json.dumps({"phase": "launches", **launches}))
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    # ---- 3-8. each path with its own launch counts: zeroed just before
+    # it, read just after, and both kernels must have launched in it
+    launches = {}
+
+    def counted(path, drive):
+        srt.KERNEL_LAUNCHES = 0
+        bwd.KERNEL_LAUNCHES = 0
+        drive()
+        launches[path] = {"lane_sort": srt.KERNEL_LAUNCHES,
+                          "fused_backward": bwd.KERNEL_LAUNCHES}
+        log(json.dumps({"phase": "launches", "path": path, **launches[path]}))
+        if not all(launches[path].values()):
+            raise AssertionError(f"a kernel of the {path} path never launched: "
+                                 f"{launches[path]}")
+
+    def knapsack():
+        pb, opt = phase_compile(torch, dev)
+        phase_solve(torch, dev, pb, opt)
+
+    def misp():
+        phase_misp_compile(torch, dev)
+        phase_small_solve(torch, dev, "misp")
+
+    counted("knapsack", knapsack)
+    phase_cpu_parity(torch, dev)  # outside every count
+    counted("misp", misp)
+    counted("max2sat", lambda: phase_small_solve(torch, dev, "max2sat"))
+    counted("mcp", lambda: phase_small_solve(torch, dev, "mcp"))
 
     kernels = []
-    for name, src, replaces, main_case in [
-        ("lane_sort", "ddo_tpu_torch/csrc/lane_sort.cu",
-         "ddo_tpu/ops/sort_pallas.py:285", "sort1"),
-        ("fused_backward", "ddo_tpu_torch/csrc/backward.cu",
-         "ddo_tpu/engine/backward.py:346", "main"),
-    ]:
-        main = rows[(name, main_case)]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": max(v["max_abs_err"] for k, v in rows.items()
-                                           if k[0] == name),
-                        "ms": main["ms"], "plain_ms": main["plain_ms"],
-                        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                        "share_of_bound": main["share_of_bound"],
-                        # no single PyTorch call sorts lanes lexicographically
-                        # on several keys with payloads, or runs the sweep
-                        "library_ms": None})
+    for path, sort_case_, backward_case_ in [("knapsack", "sort1", "main"),
+                                             ("misp", "misp_sort1", "misp"),
+                                             ("max2sat", "small_sort1", "small"),
+                                             ("mcp", "small_sort1", "small")]:
+        for name, src, replaces, main_case in [
+            ("lane_sort", "ddo_tpu_torch/csrc/lane_sort.cu",
+             "ddo_tpu/ops/sort_pallas.py:285", sort_case_),
+            ("fused_backward", "ddo_tpu_torch/csrc/backward.cu",
+             "ddo_tpu/engine/backward.py:346", backward_case_),
+        ]:
+            main = rows[(name, main_case)]
+            kernels.append({"name": name, "route": "cuda", "source": src, "path": path,
+                            "case": main_case, "kernel_route": main["route"],
+                            "replaces": replaces, "launches": launches[path][name],
+                            "max_abs_err": max(v["max_abs_err"] for k, v in rows.items()
+                                               if k[0] == name),
+                            "ms": main["ms"], "plain_ms": main["plain_ms"],
+                            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                            "share_of_bound": main["share_of_bound"],
+                            # no single PyTorch call sorts lanes lexicographically
+                            # on several keys with payloads, or runs the sweep
+                            "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@ CUDA: the port of `ddo_tpu` (JAX, TPU) to an NVIDIA H100.
 
 The same design as ddo_tpu: restricted and relaxed MDDs compiled over
 whole layers as dense masked tensors, K subproblems per superstep, and a
-best-first branch-and-bound over their exact cutsets.  The two functions
+best-first branch-and-bound over their exact cutsets.  Six of ddo_tpu's
+models are ported (`models/`: knapsack, misp, max2sat, mcp, golomb,
+talentsched).  The two functions
 ddo_tpu wrote as Pallas kernels run as hand-written CUDA kernels on a GPU
 (K1, the per-lane multi-key sort in `ops/sort.py`; K2, the fused backward
 sweep in `engine/backward.py`) and as plain PyTorch on the CPU.
@@ -70,8 +72,10 @@ def _solver(batch, cache_cls, cutset):
 
 
 # Solver alias matrix (solver/mod.rs:29-47): {Seq,Par} x {Caching,NoCaching}
-# x {Lel, Fc}.  The Pooled variants (long arcs) arrive with the models that
-# need them.
+# x {Lel, Fc, Pooled}.  The Pooled variants use the frontier-cutset engine
+# (the reference pooled MDD is frontier-only, pooled.rs:537); its long arcs
+# are engaged whenever the model overrides `Problem.is_impacted_by`
+# (engine/mdd.py).
 SeqNoCachingSolverLel = _solver(1, EmptyCache, LAST_EXACT_LAYER)
 SeqNoCachingSolverFc = _solver(1, EmptyCache, FRONTIER)
 SeqCachingSolverLel = _solver(1, SimpleCache, LAST_EXACT_LAYER)
@@ -80,6 +84,10 @@ ParNoCachingSolverLel = _solver(16, EmptyCache, LAST_EXACT_LAYER)
 ParNoCachingSolverFc = _solver(16, EmptyCache, FRONTIER)
 ParCachingSolverLel = _solver(16, SimpleCache, LAST_EXACT_LAYER)
 ParCachingSolverFc = _solver(16, SimpleCache, FRONTIER)
+SeqCachingSolverPooled = SeqCachingSolverFc
+SeqNoCachingSolverPooled = SeqNoCachingSolverFc
+ParCachingSolverPooled = ParCachingSolverFc
+ParNoCachingSolverPooled = ParNoCachingSolverFc
 
 DefaultSolver = ParNoCachingSolverLel  # solver/mod.rs:29
 DefaultCachingSolver = ParCachingSolverFc  # solver/mod.rs:30

@@ -61,8 +61,29 @@ class Problem:
 
     # -- variable ordering ---------------------------------------------------
     def var_order(self):
-        """Static branching order: host int32[n] permutation."""
+        """Static branching order: host int32[n] permutation, or None when
+        the order is dynamic (`next_variable`)."""
         return np.arange(self.nb_variables, dtype=np.int32)
+
+    def next_variable(self, data, depth, states, mask, assigned):
+        """Dynamic branching hook (used when `var_order` returns None).
+
+        `states` [K, W, ...] and `mask` bool[K, W] describe the layer each
+        of the K lanes is about to expand, `assigned` bool[K, n] the
+        variables each lane has branched on already.  Returns int64[K]:
+        one unassigned variable per lane."""
+        raise NotImplementedError
+
+    # -- long arcs -----------------------------------------------------------
+    def is_impacted_by(self, data, states, var):
+        """Long-arc hook (dp.rs:66-71, pooled.rs:608-680): `states`
+        [B, ...], `var` int64[B]; False means branching `var` does not
+        impact the state.  When a model overrides this, the engine runs in
+        long-arc mode: an unimpacted node crosses the layer through one
+        zero-cost identity arc whose decision is never recorded on the
+        path.  Not overridden, every variable impacts every state and the
+        engine skips the extra work."""
+        return torch.ones(var.shape, dtype=torch.bool, device=var.device)
 
     # -- dedup key -----------------------------------------------------------
     def pack(self, states):

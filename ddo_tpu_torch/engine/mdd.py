@@ -23,11 +23,17 @@ One call compiles K diagrams at once, one per root subproblem (a "lane"):
     parallel boolean planes.
 
 The layer loop is a Python loop over layers; every per-lane decision in it
-(is this the root layer, does the layer overflow its width, relax or not)
-stays a [K] device tensor combined with `torch.where`, so a compile makes
-no host round trip.  The loop starts at the batch's minimum root depth:
-earlier layers keep the planes' neutral fill (val=-inf, rub/wlth/eptheta
-=+inf, bp/child=-1, masks False).
+(is this the root layer, which variable to branch on, does the layer
+overflow its width, relax or not) stays a [K] device tensor combined with
+`torch.where`, so a compile makes no host round trip.  With a dynamic
+order (`var_order()` is None) each lane picks its own variable per layer
+through `next_variable`; when the model overrides `is_impacted_by` the
+engine runs in long-arc mode (pooled.rs:608-680): a node the branched
+variable does not impact crosses the layer through one zero-cost identity
+arc (domain slot 0) flagged `bs`, whose decision no path records.  The
+loop starts at the batch's minimum root depth: earlier layers keep the
+planes' neutral fill (val=-inf, rub/wlth/eptheta=+inf, bp/child=-1, masks
+False).
 
 Semantics, tie-breaks and documented divergences are ddo_tpu's, so every
 plane compares bit for bit (see ddo_tpu/engine/mdd.py's module notes):
@@ -44,12 +50,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ddo_tpu_torch.core.problem import ModelBundle
-from ddo_tpu_torch.core.types import CompilationType, CutsetType, SubProblem
+from ddo_tpu_torch.core.problem import ModelBundle, Problem
+from ddo_tpu_torch.core.types import CompilationType, CutsetType, SubProblem, host_batch
 from ddo_tpu_torch.engine import backward as bwd
+from ddo_tpu_torch.engine import extract
 from ddo_tpu_torch.ops import segments as seg
 from ddo_tpu_torch.ops import sort as sort_ops
-from ddo_tpu_torch.utils.num import INF, NEG_INF, sat_add, sat_sub
+from ddo_tpu_torch.utils.num import INF, NEG_INF, argmax_first, sat_add, sat_sub
 
 I32 = torch.int32
 _M27 = (1 << 27) - 1
@@ -99,12 +106,6 @@ def _write_layer(planes, i, values):
         planes[:, i] = values
 
 
-def _argmax_first(x):
-    """Index of the first maximum along dim 1 (jnp.argmax semantics)."""
-    idx = torch.arange(x.shape[1], device=x.device)
-    return torch.where(x == x.amax(dim=1, keepdim=True), idx, x.shape[1]).amin(dim=1)
-
-
 def _sort(ops, num_keys):
     # K1 reads strided operands: no copy beyond the int32 casts
     return sort_ops.multi_sort([o.to(I32) for o in ops], num_keys)
@@ -116,6 +117,12 @@ def _cols(fn, states, lead):
     return out.to(I32).reshape(tuple(lead) + (out.shape[-1],))
 
 
+def has_long_arcs(problem) -> bool:
+    """The engine is in long-arc mode exactly when the model overrides
+    `is_impacted_by`."""
+    return type(problem).is_impacted_by is not Problem.is_impacted_by
+
+
 # ----------------------------------------------------------------- compile
 class CutoffInterrupt(Exception):
     """Raised by a chunked compilation when the Cutoff fires mid-compile
@@ -123,15 +130,19 @@ class CutoffInterrupt(Exception):
 
 
 def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
-                  root_depths, best_lb, eff_width, cache_tab=None, dom_tab=None,
-                  cutoff=None, chunk_layers=None, start=0):
+                  root_depths, best_lb, eff_width, root_path_sets,
+                  cache_tab=None, dom_tab=None, cutoff=None, chunk_layers=None,
+                  start=0):
     """Compile K diagrams: the forward layer loop, then `finalize`.
 
     `root_states` [K, ...], `root_values` / `root_depths` / `best_lb` /
     `eff_width` int32 [K] tensors on the compile device, `order` the
-    int32 [n] branching order, `start` the first layer to run (at most
-    every lane's root depth).  Filter tables (clean.rs:689-726) are dicts
-    of tensors shared by every lane:
+    int32 [n] branching order or None for a dynamic one, `root_path_sets`
+    bool [K, n] the variables each root's path has decided (a dynamic
+    order's starting `assigned`), `start` the first layer to run (at most
+    every lane's root depth; `var_of` stays 0 above it under a dynamic
+    order).  Filter tables (clean.rs:689-726) are dicts of tensors shared
+    by every lane:
       cache_tab = {keys [n+1,T,K] i32, vals [n+1,T] i32, valid [n+1,T] bool}
       dom_tab   = {keys [n+1,T,KK], coords [n+1,T,CC], vals [n+1,T],
                    valid [n+1,T]}
@@ -152,6 +163,8 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
     use_dom = dom is not None and dom.key_cols(root_states) is not None
     use_dom_snap = use_dom and dom_tab is not None
     filtering = cache_tab is not None or use_dom_snap
+    long_arcs = has_long_arcs(problem)
+    dynamic_order = order is None
 
     eff_width = torch.clamp(eff_width, 1, W)
     lel = torch.full((K,), n + 1, dtype=I32, device=device)
@@ -160,6 +173,13 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
     idxs = torch.arange(C, dtype=I32, device=device)
     neg_idxs = (-idxs).expand(K, C)
     q = torch.arange(W, dtype=I32, device=device)
+    slot0 = torch.arange(D, device=device) == 0
+    if dynamic_order:
+        var_of = torch.zeros((K, n), dtype=I32, device=device)
+        assigned = root_path_sets
+    else:
+        order_t = torch.as_tensor(np.asarray(order), dtype=torch.long, device=device)
+        var_of = order_t.to(I32).expand(K, n)
 
     def full(shape, value, dtype=I32):
         return torch.full(shape, value, dtype=dtype, device=device)
@@ -204,7 +224,6 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         if chunked and (i - start) % chunk_layers == 0:
             poll(i)
         is_last = i == n - 1
-        var = int(order[i])
 
         # root layer materializes at depth `root_depth` (clean.rs:383-405)
         is_root = (root_depths == i)[:, None]  # [K, 1]
@@ -222,14 +241,37 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         c_wlth = torch.where(is_root, INF, cur["wlth"])
         flat_state = _flat(c_state, 2)
 
+        # the branched variable, one per lane: int64 [K]
+        if dynamic_order:
+            var = problem.next_variable(pdata, i, c_state, c_mask, assigned).long()
+            var_of[:, i] = var
+            col = var[:, None]
+            assigned = assigned.scatter(
+                1, col, assigned.gather(1, col) | c_mask.any(dim=1, keepdim=True))
+        else:
+            var = order_t[i].expand(K)
+        var_b = var.repeat_interleave(W)
+
         # --- RUB pruning (clean.rs:360-365) --------------------------------
         rub = torch.where(c_mask, rlx.rub(rdata, flat_state, i).view(K, W), INF)
         expand_ok = c_mask & (sat_add(c_val, rub) > best_lb[:, None])
-        expanded += expand_ok.sum(dim=1, dtype=I32)
+        if long_arcs:
+            # only the impacted rows really branch here
+            imp = problem.is_impacted_by(pdata, flat_state, var_b)  # [K*W]
+            expanded += (expand_ok & imp.view(K, W)).sum(dim=1, dtype=I32)
+        else:
+            expanded += expand_ok.sum(dim=1, dtype=I32)
 
         # --- expansion of K*W rows x D slots --------------------------------
-        var_b = torch.full((K * W,), var, dtype=torch.long, device=device)
         nstate, cost, dval, valid = problem.step(pdata, flat_state, var_b, i)
+        if long_arcs:
+            # an unimpacted row: one identity candidate at domain slot 0
+            keep = imp[:, None]  # [K*W, 1]
+            valid = torch.where(keep, valid, slot0)
+            nstate = tmap(lambda real, cur: torch.where(
+                _bcast(keep, real), real, cur[:, None]), nstate, flat_state)
+            cost = torch.where(keep, cost, 0)
+            f_skip = (~keep).expand(K * W, D).reshape(K, C)
         # flatten candidates: append order = (parent slot, domain slot)
         f_valid = (valid & expand_ok.reshape(K * W, 1)).reshape(K, C)
         f_cost = cost.to(I32).reshape(K, C)
@@ -247,7 +289,8 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
             + [-f_val, neg_idxs]
         f_rank = _cols(lambda s: ranking.score(kdata, s), f_state, (K, C))
         R = f_rank.shape[2]
-        pay = [f_dval, f_pexact.to(I32)] + [f_rank[:, :, r] for r in range(R)]
+        pay = [f_dval, f_pexact.to(I32)] + ([f_skip.to(I32)] if long_arcs else []) \
+            + [f_rank[:, :, r] for r in range(R)]
         if use_dom:
             f_dkey = _cols(dom.key_cols, f_state, (K, C))
             f_dcoord = _cols(dom.coord_cols, f_state, (K, C))
@@ -262,6 +305,9 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         o = 3 + Kk
         pexact_s = s1[o + 1].bool()
         o += 2
+        if long_arcs:
+            skip_s = s1[o].bool()
+            o += 1
         s_rank = torch.stack(s1[o : o + R], dim=2)
         o += R
         if use_dom:
@@ -353,7 +399,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         merged_key = problem.pack(merged_state).to(I32)  # [K, Kk]
         eq_kept = kept & (kv == merged_key[:, None, :]).all(dim=2)
         recycled = eq_kept.any(dim=1) & need_relax
-        recycled_slot = _argmax_first(eq_kept.to(I32))[:, None]
+        recycled_slot = argmax_first(eq_kept.to(I32))[:, None]
         merged_pos = torch.where(recycled, rank_of.gather(1, recycled_slot)[:, 0], limit)
 
         # recycle/save: when the merged state equals a kept node, the saved
@@ -372,8 +418,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
                 _flat(f_state, 2),
                 _flat(tmap(lambda m: m[:, None].expand((K, C) + tuple(m.shape[1:])),
                            merged_state), 2),
-                f_dval.reshape(-1), f_cost.reshape(-1),
-                torch.full((K * C,), var, dtype=torch.long, device=device),
+                f_dval.reshape(-1), f_cost.reshape(-1), var.repeat_interleave(C),
             ).to(I32).reshape(K, C)
             e_cost = torch.where(e_merge, rcost, f_cost)
         else:
@@ -411,6 +456,8 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         nl_exact = slot_exact.gather(1, order2_W)
         nl_bp = torch.where(so_valid[:, :W], fidx_W // D, -1)
         nl_bd = f_dval.gather(1, fidx_W.long())
+        # a node whose best in-edge is a long (skip) arc
+        nl_bs = skip_s.gather(1, order2_W) if long_arcs else false((K, W))
         nl_state = tmap(lambda x: seg.take_rows(x, fidx_W), f_state)
 
         # overrides for the merged node
@@ -423,6 +470,9 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         use_m = is_mpos & take_medge[:, None]
         nl_bp = torch.where(use_m, m_bp[:, None], nl_bp)
         nl_bd = torch.where(use_m, m_bd[:, None], nl_bd)
+        if long_arcs:
+            m_bs = has_medge & f_skip.gather(1, m_best)[:, 0]
+            nl_bs = torch.where(use_m, m_bs[:, None], nl_bs)
         # the merged node is never exact, recycled or not (node_flags.rs:88-90)
         nl_exact = nl_exact & ~is_mpos
         nl_relaxed = is_mpos
@@ -488,15 +538,15 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         E["cost"][:, i] = e_cost
         E["valid"][:, i] = e_valid
         cur = dict(state=nl_state, val=nl_val, mask=q_valid, exact=nl_exact,
-                   relaxed=nl_relaxed, bp=nl_bp, bd=nl_bd, bs=false((K, W)),
+                   relaxed=nl_relaxed, bp=nl_bp, bd=nl_bd, bs=nl_bs & q_valid,
                    ebp=nl_ebp, wlp=wl_pruned, wlth=wl_ptheta)
     if chunked:
         poll(n)
-    return finalize(spec, datas, order, cur, P, E, lel, expanded, overflow,
+    return finalize(spec, datas, var_of, cur, P, E, lel, expanded, overflow,
                     best_lb, root_depths, use_dom)
 
 
-def finalize(spec: DDSpec, datas, order, term, P, E, lel, expanded, overflow,
+def finalize(spec: DDSpec, datas, var_of, term, P, E, lel, expanded, overflow,
              best_lb, root_depths, use_dom):
     """Finalization over the layer planes: best node, exactness and
     cutset planes, the fused local-bounds + thresholds backward sweep, and
@@ -516,12 +566,12 @@ def finalize(spec: DDSpec, datas, order, term, P, E, lel, expanded, overflow,
     term_mask = term["mask"]
     term_val = torch.where(term_mask, term["val"], NEG_INF)
     feasible = term_mask.any(dim=1)
-    best_slot = _argmax_first(term_val)
+    best_slot = argmax_first(term_val)
     best_value = term_val.gather(1, best_slot[:, None])[:, 0]
     texact = term_mask & term["exact"]
     tev = torch.where(texact, term["val"], NEG_INF)
     bx_feasible = texact.any(dim=1)
-    bx_slot = _argmax_first(tev)
+    bx_slot = argmax_first(tev)
     bx_value = tev.gather(1, bx_slot[:, None])[:, 0]
 
     is_exact_dd = lel == n + 1  # no layer was ever squashed (clean.rs:635)
@@ -592,7 +642,7 @@ def finalize(spec: DDSpec, datas, order, term, P, E, lel, expanded, overflow,
         state=P["state"], value=S_val, mask=S_mask, exact=S_exact,
         relaxed=P["relaxed"], keys=S_keys, rank0=S_rank0, rub=P["rub"],
         bp=P["bp"], bd=P["bd"], bs=P["bs"],
-        var_of=torch.as_tensor(order, dtype=I32, device=device).expand(K, n),
+        var_of=var_of,
         value_bot=cat(vb_stack, vb_n), marked=cat(mk_stack, mk_n),
         theta=theta, has_theta=has_theta, above=above, cutflag=cutflag,
         wl_pruned=WLP, wl_unexplored=wl_unexplored,
@@ -630,6 +680,12 @@ class _BatchPlanes:
         if key not in self._np:
             self._np[key] = tmap(lambda t: t.cpu().numpy(), self._dev[key])
         return self._np[key]
+
+    def prefetch(self, keys):
+        """Bring the planes `keys` to the host together (one stream
+        synchronize for all of them, `extract.prefetch`)."""
+        todo = {k: self._dev[k] for k in keys if k not in self._np}
+        self._np.update(extract.prefetch(todo))
 
     def __contains__(self, key):
         return key in self._dev
@@ -707,12 +763,13 @@ class CompiledDD:
         vals = self.root.path_vals.copy()
         pset = self.root.path_set.copy()
         d0 = int(self.o["root_depth"])
-        var_of, bd, bp = self.o["var_of"], self.o["bd"], self.o["bp"]
+        var_of, bd, bp, bs = (self.o[k] for k in ("var_of", "bd", "bp", "bs"))
         l, s = layer, slot
         while l > d0:
             var = int(var_of[l - 1])
-            vals[var] = int(bd[l, s])
-            pset[var] = True
+            if not bs[l, s]:  # long arcs record no decision
+                vals[var] = int(bd[l, s])
+                pset[var] = True
             s = int(bp[l, s])
             l -= 1
             if s < 0:
@@ -749,7 +806,7 @@ class CompiledDD:
         vals = np.tile(self.root.path_vals, (M, 1)).astype(np.int32)
         pset = np.tile(self.root.path_set, (M, 1)).astype(bool)
         d0 = int(self.o["root_depth"])
-        var_of, bd, bp = self.o["var_of"], self.o["bd"], self.o["bp"]
+        var_of, bd, bp, bs = (self.o[k] for k in ("var_of", "bd", "bp", "bs"))
         cur_l = np.asarray(layers, np.int64).copy()
         cur_s = np.asarray(slots, np.int64).copy()
         for l in range(self.n, d0, -1):
@@ -758,8 +815,9 @@ class CompiledDD:
                 continue
             var = int(var_of[l - 1])
             ss = cur_s[act]
-            vals[act, var] = bd[l, ss]
-            pset[act, var] = True
+            rec = ~bs[l, ss]  # long arcs record no decision
+            vals[act, var] = np.where(rec, bd[l, ss], vals[act, var])
+            pset[act, var] |= rec
             cur_s[act] = bp[l, ss]
             cur_l[act] -= 1
         return vals, pset
@@ -822,12 +880,20 @@ class CompiledBatch(list):
     over the active lanes (two scalars read per superstep)."""
 
     def __init__(self, views, global_best_dev, total_expanded_dev, spec=None,
-                 planes=None):
+                 planes=None, actives=None):
         super().__init__(views)
         self._gbest = global_best_dev
         self._texp = total_expanded_dev
         self.spec = spec
         self._planes = planes
+        #: bool [K] device tensor: the lanes the reductions count
+        self.actives = actives
+
+    @property
+    def dev(self):
+        """The batch's output dict of device tensors (leading lane dim),
+        read by the device-side row extraction (engine/extract.py)."""
+        return self._planes._dev if self._planes is not None else None
 
     @property
     def global_best(self) -> int:
@@ -845,8 +911,7 @@ def paths_batch_multi(planes: _BatchPlanes, lanes, layers, slots, roots):
     over layers for all rows (ddo_tpu/engine/mdd.py:1623-1664).  Each row
     stops at its own lane's root depth."""
     M = len(lanes)
-    bp, bd = planes.get("bp"), planes.get("bd")
-    var_of = planes.get("var_of")
+    bp, bd, bs, var_of = (planes.get(k) for k in ("bp", "bd", "bs", "var_of"))
     n = var_of.shape[1]
     if M == 0:
         return np.zeros((0, n), np.int32), np.zeros((0, n), bool)
@@ -865,11 +930,44 @@ def paths_batch_multi(planes: _BatchPlanes, lanes, layers, slots, roots):
         lr = ln[r]
         ss = cur_s[r]
         var = var_of[lr, l - 1].astype(np.int64)
-        vals[r, var] = bd[lr, l, ss]
-        pset[r, var] = True
+        rec = ~bs[lr, l, ss]  # long arcs record no decision
+        vals[r, var] = np.where(rec, bd[lr, l, ss], vals[r, var])
+        pset[r, var] |= rec
         cur_s[r] = bp[lr, l, ss]
         cur_l[r] -= 1
     return vals, pset
+
+
+def _check_sort_operands(bundle: ModelBundle, dominance, width: int):
+    """Raise when a layer's sorts at buffer width `width` are beyond kernel
+    K1, which sorts every layer on a card: sort-1 carries the validity key,
+    the packed state words, -value and -index as keys, then dval, pexact,
+    the long-arc flag, the ranking columns and the dominance columns as
+    payloads, at most `MAX_OPERANDS` in one launch; sort-2 carries the
+    survivor key, -value, the ranking columns and -index; and a lane of
+    width * domain_size rows of either must fit one of K1's routes.  The
+    plain sort of the CPU route has no such limit."""
+    problem = bundle.problem
+    st = host_batch(problem.initial_state())
+    Kk = problem.pack(st).shape[1]
+    R = bundle.ranking.score(bundle.ranking.data("cpu"), st).shape[1]
+    n_ops = 5 + Kk + R + int(has_long_arcs(problem))
+    if dominance is not None and dominance.key_cols(st) is not None:
+        n_ops += dominance.key_cols(st).shape[1] + dominance.coord_cols(st).shape[1]
+    if n_ops > sort_ops.MAX_OPERANDS:
+        raise ValueError(
+            f"DDCompiler: model {problem.name!r} needs {n_ops} sort operands "
+            f"per layer (state key words, ranking and dominance columns); one "
+            f"launch of the lane sort takes {sort_ops.MAX_OPERANDS}")
+    C = width * problem.domain_size
+    for what, nk in (("sort-1", 3 + Kk), ("sort-2", 3 + R)):
+        try:
+            sort_ops.lane_sort_route(nk, C)
+        except ValueError as e:
+            raise ValueError(
+                f"DDCompiler: model {problem.name!r} at width {width} has layers of "
+                f"{C} candidates (width x domain size {problem.domain_size}), and "
+                f"{what}'s {nk} keys over them are beyond the lane sort: {e}") from e
 
 
 class DDCompiler:
@@ -889,10 +987,10 @@ class DDCompiler:
             raise RuntimeError("DDCompiler: no CUDA device for device='cuda'; pass "
                                "device='cpu' for the plain PyTorch route")
         order = bundle.problem.var_order()
-        if order is None:
-            raise NotImplementedError(
-                "dynamic variable ordering is not ported yet (static var_order only)")
-        self.order = np.asarray(order, np.int32)
+        #: the static branching order, or None for a dynamic one
+        self.order = None if order is None else np.asarray(order, np.int32)
+        if self.device.type == "cuda":
+            _check_sort_operands(bundle, dominance, width)
         self.datas = bundle.datas(self.device)
         self._specs = {ct: DDSpec(bundle, width, ct, cutset_type, dominance)
                        for ct in CompilationType}
@@ -909,15 +1007,17 @@ class DDCompiler:
                                      device=dev)
         K = len(subs)
         lb = best_lb.expand(K) if torch.is_tensor(best_lb) else t(best_lb).expand(K)
+        psets = torch.as_tensor(np.stack([np.asarray(s.path_set, bool) for s in subs]),
+                                device=dev)
         return (states, t([s.value for s in subs]), t([s.depth for s in subs]),
-                lb.contiguous(), t(list(eff_widths)))
+                lb.contiguous(), t(list(eff_widths)), psets)
 
     def _run(self, spec, subs, roots, best_lb, cache_tab, dom_tab, cutoff=None,
              chunk_layers=None):
-        states, values, depths, _, widths = roots
+        states, values, depths, _, widths, psets = roots
         return compile_lanes(
             spec, self.datas, self.order, states, values, depths, best_lb, widths,
-            cache_tab=cache_tab, dom_tab=dom_tab, cutoff=cutoff,
+            psets, cache_tab=cache_tab, dom_tab=dom_tab, cutoff=cutoff,
             chunk_layers=chunk_layers, start=min(s.depth for s in subs),
         )
 
@@ -926,7 +1026,7 @@ class DDCompiler:
         gbest, texp = _batch_stats(out, actives)
         return CompiledBatch(
             [CompiledDD(spec, _LaneView(planes, k), sub) for k, sub in enumerate(subs)],
-            gbest, texp, spec=spec, planes=planes,
+            gbest, texp, spec=spec, planes=planes, actives=actives,
         )
 
     def compile(self, comp_type: CompilationType, sub: SubProblem, best_lb: int,

@@ -1,10 +1,12 @@
 """Where the time of one K-lane compile goes on a GPU.
 
-    python -m ddo_tpu_torch.profile_compile
+    python -m ddo_tpu_torch.profile_compile [knapsack|misp]
 
-Runs `chip_smoke.py`'s real-size shape, a relaxed `compile_batch` of 128
-root lanes of `generate_uncorrelated(2000, 1000, 1, 100, seed=0)` at
-buffer width 256, on `cuda:0`: once to warm up, three times timed on the
+Runs one of `chip_smoke.py`'s real-size shapes, a relaxed `compile_batch`
+of 128 root lanes at buffer width 256 on `cuda:0`, of
+`generate_uncorrelated(2000, 1000, 1, 100, seed=0)` (knapsack, the
+default) or of `generate_gnp(200, 0.1, seed=0)` (misp: a dynamic order,
+long arcs, 7-word bitset states): once to warm up, three times timed on the
 wall clock (the compile is bound by the host, whose speed varies from run
 to run), and once under `torch.profiler`.  Prints one JSON line: the
 median wall time (total and per layer) and every timed run's, the kernel
@@ -25,7 +27,7 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-N_ITEMS, LANES, WIDTH, SEED = 2000, 128, 256, 0
+LANES, WIDTH, SEED = 128, 256, 0
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
 
@@ -47,18 +49,34 @@ def _on_device(entry) -> bool:
             and not getattr(entry, "is_user_annotation", False))
 
 
-def main() -> int:
+def _bundle(tt, model):
+    if model == "knapsack":
+        from ddo_tpu_torch.models import knapsack as kp
+
+        pb = kp.generate_uncorrelated(2000, 1000, 1, 100, SEED)
+        return tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking())
+    from ddo_tpu_torch.models import misp as mi
+
+    pb, _ = mi.generate_gnp(200, 0.1, SEED)
+    return tt.ModelBundle(pb, mi.MispRelax(pb), mi.MispRanking(pb))
+
+
+def main(argv) -> int:
+    model = argv[1] if len(argv) > 1 else "knapsack"
+    if model not in ("knapsack", "misp"):
+        print(__doc__, file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profile_compile: no CUDA device", file=sys.stderr)
         return 2
 
     import ddo_tpu_torch as tt
-    from ddo_tpu_torch.models import knapsack as kp
 
     dev = torch.device("cuda", 0)
-    pb = kp.generate_uncorrelated(N_ITEMS, 1000, 1, 100, SEED)
-    compiler = tt.DDCompiler(tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()),
-                             WIDTH, tt.LAST_EXACT_LAYER, device=dev)
+    bundle = _bundle(tt, model)
+    pb = bundle.problem
+    n_layers = pb.nb_variables
+    compiler = tt.DDCompiler(bundle, WIDTH, tt.LAST_EXACT_LAYER, device=dev)
     roots = [tt.root_subproblem(pb)] * LANES
 
     def compile_once():
@@ -94,11 +112,11 @@ def main() -> int:
                 if entries and hasattr(entries[0], k)), None)
     print(entries.table(sort_by=key, row_limit=60), file=sys.stderr)
     print(json.dumps({
-        "phase": "profile_compile", "n": N_ITEMS, "lanes": LANES,
+        "phase": "profile_compile", "model": model, "n": n_layers, "lanes": LANES,
         "width": WIDTH, "expanded": expanded,
-        "wall_s": wall, "wall_ms_per_layer": 1e3 * wall / N_ITEMS, "wall_runs_s": walls,
+        "wall_s": wall, "wall_ms_per_layer": 1e3 * wall / n_layers, "wall_runs_s": walls,
         "profiled_wall_s": profiled_wall, "analysis_s": analysis,
-        "launches": launches, "launches_per_layer": launches / N_ITEMS,
+        "launches": launches, "launches_per_layer": launches / n_layers,
         "device_ms": device_us / 1e3,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "port_kernels": [{"name": e.key, "count": e.count, "device_ms": _device_us(e) / 1e3,
@@ -111,4 +129,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

@@ -7,9 +7,12 @@ Counterpart of `ddo_tpu/search/solver.py`:
     shared fringe, each superstep pops up to K subproblems and compiles K
     restricted, then K relaxed, DDs in one K-lane engine pass.
 
-Extraction takes the plane route: after a superstep every plane the host
-reads crosses to the host once (one `.cpu()` per plane, for all lanes),
-never per node.  Cutset branch-and-bound is exploration-order independent,
+Extraction has two routes.  The plane route copies every plane the host
+reads to the host once (one `.cpu()` per plane, for all lanes) and selects
+rows with numpy.  The compact route (`engine/extract.py`, `_compact`, on
+by default for a CUDA device) selects the cache rows, the dominance rows
+and the cutset on the device and copies only those, plus the small
+per-lane planes, through pinned buffers.  Cutset branch-and-bound is exploration-order independent,
 so popping K nodes changes when incumbents and thresholds appear, never
 the proved optimum.
 """
@@ -33,7 +36,8 @@ from ddo_tpu_torch.core.types import (
     SubProblem,
     root_subproblem,
 )
-from ddo_tpu_torch.engine.mdd import CutoffInterrupt, DDCompiler
+from ddo_tpu_torch.engine import extract as EX
+from ddo_tpu_torch.engine.mdd import CutoffInterrupt, DDCompiler, paths_batch_multi
 from ddo_tpu_torch.search.cache import Cache, EmptyCache
 from ddo_tpu_torch.search.dominance import DominanceChecker, EmptyDominanceChecker
 from ddo_tpu_torch.search.fringe import Fringe, NoDupFringe
@@ -117,6 +121,10 @@ class SequentialSolver:
         self.compile_chunk = compile_chunk
         self.fringe = fringe if fringe is not None else NoDupFringe(subproblem_ranking)
         self.batch = batch
+        # device-side row extraction (engine/extract.py): on for a card,
+        # where whole planes would cross PCIe; off on the CPU, where a
+        # plane "copy" is free.  A/B runs and tests set the attribute.
+        self._compact = self.device.type == "cuda"
 
         self.best_lb = NEG_INF
         self.best_ub = INF
@@ -238,6 +246,105 @@ class SequentialSolver:
         dev = self.compiler.device
         return self.cache.snapshot(dev), self.dominance.snapshot(dev)
 
+    # ------- device-side compact extraction (engine/extract.py) ----------
+    #: per-lane scalars every superstep reads
+    _LANE_PLANES = ("is_exact_dd", "has_ebp", "bx_feasible", "bx_value", "bx_slot",
+                    "overflow", "feasible", "best_value", "root_depth")
+    #: planes a best-path walk reads
+    _PATH_PLANES = ("bp", "bd", "bs", "var_of")
+
+    def _extract_batch(self, cb, want_cutset=False):
+        """Select the compact rows of one compiled batch on the device and
+        bring them to the host together with the small per-lane planes the
+        superstep reads: one synchronize for all of it.  `cb.actives`
+        already leaves out a fused relaxed batch's lanes whose restricted
+        DD came out exact."""
+        dev, act = cb.dev, cb.actives
+        K, n1, W = dev["value"].shape
+        Mc, Md, Mu = EX.extract_caps(K, n1, W)
+        use_dom = self.filtering and self.dominance.dom is not None and "dkey" in dev
+        res = {}
+        if not isinstance(self.cache, EmptyCache):
+            res["cache"] = EX.cache_rows(
+                dev["has_theta"], dev["above"], dev["cutflag"], dev["wl_unexplored"],
+                dev["theta"], dev["keys"], act, M=Mc)
+        if use_dom:
+            res["dom"] = EX.exact_rows(dev["exact"], dev["mask"], dev["value"],
+                                       dev["dkey"], dev["dcoord"], act, M=Md)
+        planes = self._LANE_PLANES
+        if want_cutset:
+            act_cut = act & ~(dev["is_exact_dd"] | dev["has_ebp"])
+            zcols = dev["keys"][:, :, :0, :]
+            res["cut"] = EX.cutset_rows(
+                dev["cutflag"], dev["marked"], dev["value"], dev["rub"],
+                dev["value_bot"], dev["rank0"], dev["keys"], dev["best_value"],
+                dev["feasible"], dev.get("dkey", zcols), dev.get("dcoord", zcols),
+                act_cut, M=Mu, with_dom=use_dom)
+            planes = planes + self._PATH_PLANES
+        cb._planes.prefetch(planes)
+        return EX.prefetch(res)
+
+    def _apply_cache_compact(self, res):
+        ex = res.get("cache")
+        if ex is not None and ex["count"]:
+            self.cache.update_batch(ex["depths"], ex["keys"], ex["thetas"], ex["explored"])
+
+    def _absorb_dominance_compact(self, res):
+        ex = res.get("dom")
+        if ex is not None and ex["count"]:
+            self.dominance.insert_batch(ex["depths"], ex["dkeys"], ex["dcoords"],
+                                        ex["values"])
+
+    def _enqueue_cutset_compact(self, res, batch, relaxed):
+        """Enqueue every cutset row of the compact extraction.  Returns
+        False when the row cap overflowed (a cutset may not be truncated):
+        the caller falls back to the plane route."""
+        ex = res["cut"]
+        if ex["count"] > len(ex["lanes"]):
+            return False
+        if ex["count"] == 0:
+            return True
+        lanes, layers, slots, keys = ex["lanes"], ex["layers"], ex["slots"], ex["keys"]
+        values = ex["values"].astype(np.int64)
+        node_ub = np.asarray([nd.ub for nd in batch], np.int64)
+        ubs = np.minimum(ex["ubs"].astype(np.int64), node_ub[lanes])
+        keep = ubs > self.best_lb
+        in_compile_dom = "dkeys" in ex
+        if in_compile_dom:
+            dkeys, dcoords = ex["dkeys"], ex["dcoords"]
+            keep &= ~self.dominance.is_dominated_batch(layers, dkeys, dcoords, values)
+        rows = np.flatnonzero(keep)
+        if len(rows) == 0:
+            return True
+        vals, psets = paths_batch_multi(relaxed._planes, lanes[rows], layers[rows],
+                                        slots[rows], batch)
+        for j, i in enumerate(rows):
+            self._push_cutset_node(
+                keys[i], int(layers[i]), int(values[i]), int(ubs[i]), vals[j], psets[j],
+                dkeys[i] if in_compile_dom else None,
+                dcoords[i] if in_compile_dom else None)
+        return True
+
+    def _push_cutset_node(self, key, depth, value, ub, path_vals, path_set,
+                          dom_key, dom_coords):
+        """One cutset row into the fringe; the state is rebuilt from its
+        packed key (`problem.unpack`).  Without in-compile dominance
+        columns (`dom_key` None) the row is probed against, and inserted
+        into, the dominance store here."""
+        state = self.problem.unpack(key)
+        if dom_key is None:
+            res = self.dominance.is_dominated_or_insert(state, key.tobytes(), depth, value)
+            if res.dominated:
+                return
+        sub = SubProblem(
+            state=state, value=value, path_vals=path_vals, path_set=path_set, ub=ub,
+            depth=depth, key=np.ascontiguousarray(key, np.int32).tobytes(),
+            dom_key=dom_key, dom_coords=dom_coords,
+        )
+        before = len(self.fringe)
+        self.fringe.push(sub)
+        self.open_by_layer[sub.depth] += len(self.fringe) - before
+
     def _process_batch(self, batch):
         """sequential.rs:329-389 vectorized over the batch."""
         widths = [max(1, self.width_heu.max_width(nd)) for nd in batch]
@@ -257,18 +364,25 @@ class SequentialSolver:
             cutoff=self.cutoff, chunk_layers=self.compile_chunk,
         )
         self.expanded_nodes += restricted.total_expanded
+        ex_r = self._extract_batch(restricted) if self._compact else None
         t1 = time.perf_counter()
         self.stats.restricted_s += t1 - t0
         need_relax, widths2 = [], []
         improved = restricted.global_best > self.best_lb
+        if improved and self._compact:
+            restricted._planes.prefetch(self._PATH_PLANES)
         for nd, dd, w in zip(batch, restricted, widths):
             if improved:
                 self._maybe_update_best(dd)
-            self._apply_cache_updates(dd)
-            self._absorb_dominance(dd)
+            if not self._compact:
+                self._apply_cache_updates(dd)
+                self._absorb_dominance(dd)
             if not dd.is_exact():
                 need_relax.append(nd)
                 widths2.append(w)
+        if self._compact:
+            self._apply_cache_compact(ex_r)
+            self._absorb_dominance_compact(ex_r)
         self.stats.host_s += time.perf_counter() - t1
 
         if not need_relax:
@@ -283,17 +397,36 @@ class SequentialSolver:
             cutoff=self.cutoff, chunk_layers=self.compile_chunk,
         )
         self.expanded_nodes += relaxed.total_expanded
+        ex_x = self._extract_batch(relaxed, want_cutset=True) if self._compact else None
         t3 = time.perf_counter()
         self.stats.relaxed_s += t3 - t2
+        self._absorb_relaxed(list(zip(need_relax, relaxed)), need_relax, relaxed, ex_x)
+        self.stats.host_s += time.perf_counter() - t3
+
+    def _absorb_relaxed(self, need, batch, relaxed, ex_x):
+        """The relaxed pass's results: incumbent, cache and dominance rows,
+        then the cutset of every inexact lane into the fringe.  `need` is
+        the (node, relaxed DD) pairs to read, `batch` the nodes of all the
+        lanes of `relaxed`, `ex_x` its compact extraction or None for the
+        plane route."""
         improved = relaxed.global_best > self.best_lb
-        for nd, dd in zip(need_relax, relaxed):
+        for nd, dd in need:
             if improved:
                 self._maybe_update_best(dd)
-            self._apply_cache_updates(dd)
-            self._absorb_dominance(dd)
-            if not dd.is_exact():
-                self._enqueue_cutset(nd, dd)
-        self.stats.host_s += time.perf_counter() - t3
+            if ex_x is None:
+                self._apply_cache_updates(dd)
+                self._absorb_dominance(dd)
+                if not dd.is_exact():
+                    self._enqueue_cutset(nd, dd)
+        if ex_x is not None:
+            self._apply_cache_compact(ex_x)
+            self._absorb_dominance_compact(ex_x)
+            for _, dd in need:
+                dd._check_overflow()
+            if not self._enqueue_cutset_compact(ex_x, batch, relaxed):
+                for nd, dd in need:
+                    if not dd.is_exact():
+                        self._enqueue_cutset(nd, dd)
 
     def _process_batch_fused(self, batch, widths):
         """One superstep (engine `compile_fused`): restricted + relaxed
@@ -306,25 +439,28 @@ class SequentialSolver:
         restricted, relaxed = self.compiler.compile_fused(
             batch, self.best_lb, widths, cache_tab=cache_tab, dom_tab=dom_tab)
         self.expanded_nodes += restricted.total_expanded + relaxed.total_expanded
+        ex_r = ex_x = None
+        if self._compact:
+            ex_r = self._extract_batch(restricted)
+            ex_x = self._extract_batch(relaxed, want_cutset=True)
         t1 = time.perf_counter()
         self.stats.restricted_s += t1 - t0
         improved = restricted.global_best > self.best_lb
+        if improved and self._compact:
+            restricted._planes.prefetch(self._PATH_PLANES)
         need = []
         for nd, dd_r, dd_x in zip(batch, restricted, relaxed):
             if improved:
                 self._maybe_update_best(dd_r)
-            self._apply_cache_updates(dd_r)
-            self._absorb_dominance(dd_r)
+            if not self._compact:
+                self._apply_cache_updates(dd_r)
+                self._absorb_dominance(dd_r)
             if not dd_r.is_exact():
                 need.append((nd, dd_x))
-        improved = relaxed.global_best > self.best_lb
-        for nd, dd_x in need:
-            if improved:
-                self._maybe_update_best(dd_x)
-            self._apply_cache_updates(dd_x)
-            self._absorb_dominance(dd_x)
-            if not dd_x.is_exact():
-                self._enqueue_cutset(nd, dd_x)
+        if self._compact:
+            self._apply_cache_compact(ex_r)
+            self._absorb_dominance_compact(ex_r)
+        self._absorb_relaxed(need, batch, relaxed, ex_x)
         self.stats.host_s += time.perf_counter() - t1
 
     def _maybe_update_best(self, dd):
@@ -363,22 +499,10 @@ class SequentialSolver:
             # insertion happened in _absorb_dominance; check-only probe
             keep &= ~self.dominance.is_dominated_batch(depths, batch[7], batch[8], values)
         for i in np.flatnonzero(keep):
-            state = self.problem.unpack(keys[i])
-            if not in_compile_dom:
-                res = self.dominance.is_dominated_or_insert(
-                    state, keys[i].tobytes(), int(depths[i]), int(values[i]))
-                if res.dominated:
-                    continue
-            sub = SubProblem(
-                state=state, value=int(values[i]), path_vals=pvals[i],
-                path_set=psets[i], ub=int(ubs[i]), depth=int(depths[i]),
-                key=np.ascontiguousarray(keys[i], np.int32).tobytes(),
-                dom_key=batch[7][i] if in_compile_dom else None,
-                dom_coords=batch[8][i] if in_compile_dom else None,
-            )
-            before = len(self.fringe)
-            self.fringe.push(sub)
-            self.open_by_layer[sub.depth] += len(self.fringe) - before
+            self._push_cutset_node(
+                keys[i], int(depths[i]), int(values[i]), int(ubs[i]), pvals[i], psets[i],
+                batch[7][i] if in_compile_dom else None,
+                batch[8][i] if in_compile_dom else None)
 
     def _abort(self, reason, pending):
         """sequential.rs:418-422 + parallel.rs:479-497 (bound recovery)."""

@@ -26,3 +26,18 @@ def sat_add(a, b):
 def sat_sub(a, b):
     """Saturating subtraction over int32 objective tensors."""
     return torch.clamp(a - b, NEG_INF, INF)
+
+
+def argmax_first(x):
+    """Index of the first maximum along the last dim (jnp.argmax's tie
+    rule, which torch.argmax does not promise)."""
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device)
+    return torch.where(x == x.amax(dim=-1, keepdim=True), idx, n).amin(dim=-1)
+
+
+def argmin_first(x):
+    """Index of the first minimum along the last dim (jnp.argmin's tie rule)."""
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device)
+    return torch.where(x == x.amin(dim=-1, keepdim=True), idx, n).amin(dim=-1)

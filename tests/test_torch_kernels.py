@@ -87,6 +87,8 @@ def _sorted_on_card(ops, nk, route=None):
     (2, 2048, 4, 1, 12),   # C2 = 2048: the "regs" route's 1024 threads
     (2, 4096, 2, 1, 13),   # C2 = 4096: the "perm" route
     (4, 200, 9, 2, 14),    # one key above REGS_MAX_KEYS: the "perm" route
+    (128, 512, 10, 11, 16),  # MISP sort-1 at real size (7 state words): "perm"
+    (128, 512, 11, 0, 17),   # MISP sort-2 at real size: "perm"
 ])
 def test_lane_sort_matches_plain_on_card(L, C, nk, npay, seed):
     _card()
@@ -170,6 +172,7 @@ def test_lane_sort_route_choice():
     route = tsort.lane_sort_route
     assert route(4, 512) == route(1, 1) == route(8, 2048) == route(1, 2) == "regs"
     assert route(9, 512) == route(4, 2049) == route(2, 4096) == route(42, 700) == "perm"
+    assert route(10, 512) == route(11, 512) == "perm"  # MISP at 200 vertices
     for nk, C in [(40, 4096), (2, 28_000)]:
         with pytest.raises(ValueError, match="shared memory"):
             route(nk, C)
