@@ -10,17 +10,24 @@ Phases, each printing its own line(s):
      together, with ptxas's registers, shared memory and spills per kernel;
   2. each kernel against its plain PyTorch version on the card, bit-equal
      on every output, at the main paths' shapes (K1: the knapsack sort-1
-     and sort-2 at 128 lanes x 512 rows, the MISP sort-1 with 10 keys + 11
-     payloads and sort-2 with 11 keys on the "perm" route, the max2sat
-     and max-cut sorts at 16 lanes x 16 rows, a non-power-of-two row count
-     and one lane; K2: 128 lanes x 2000 layers x W=256 x D=2, one lane,
-     the MISP compile's 200 layers and the max2sat and max-cut sweeps) and at
-     each route's boundaries (K1 at 32, 64 and 2048 rows and on its "perm"
-     route; K2 with fewer layers than a ring block, and on its direct
-     route at W=1100 and W=4096), each with its time, the plain version's,
-     the least time the card could take (`bound_ms`, bytes or operations)
-     and the share of it reached; K1's earlier "perm" route is timed
-     beside its "regs" route in turns wherever both take the shape;
+     and sort-2 at 128 lanes x 512 rows, the MISP sorts on the "perm"
+     route, the max2sat and max-cut sorts, TSPTW N60's two sorts at 128
+     lanes x 15,616 rows, SOP with 380 jobs in one lane of 97,280 rows, 39
+     keys, SRFLP n=60 with 70 operands, LCS with 10 strings x 20 letters,
+     those four on the "merge" route, and the small models' sorts; K2: 128
+     lanes x 2000 layers x W=256 x D=2, one lane, the MISP compile's 200
+     layers, the max2sat and max-cut sweeps, the TSPTW compile's 61 layers
+     x W=256 x D=61 and the small models' sweeps) and at each route's
+     boundaries (K1 at 32, 64 and 2048 rows and on its "perm" route; its
+     "merge" route at 1 row, at a tile of 1024 rows less one, exactly and
+     plus one, at 50,000 rows, and with every key in {0, 1}, where the
+     payloads too must be the stable plain version's; K2 with fewer layers
+     than a ring block, and on its direct route at W=1100 and W=4096),
+     each with its time, the plain version's, the least time the card
+     could take (`bound_ms`, bytes or operations, one yardstick for every
+     K1 route) and the share of it reached; each K1 route is timed in
+     turns beside the next one that takes the shape ("regs" beside
+     "perm", "perm" beside "merge");
   3. the main path at real size: a seeded uncorrelated knapsack with
      n=2000 (Pisinger's knapPI_1 family), a restricted and a relaxed
      compile of 128 root lanes at W=256 bracketing the exact DP optimum,
@@ -51,12 +58,31 @@ Phases, each printing its own line(s):
      branch and bound over Python-int bitmasks;
   8. `maximize` to gap 0 on a seeded max2sat and then on a seeded max-cut
      instance, each against brute force over all assignments;
+  9. the TSPTW path at full width: a seeded 61-node instance of Langevin's
+     N60 shape (60 customers and a depot in a square, windows around a
+     random feasible tour, distances x10000), a restricted and a relaxed
+     compile of 128 root lanes at W=256 with the dominance filter (no
+     coordinate columns), each followed by the solver's compact
+     extraction: both sorts of every layer on K1's "merge" route, the
+     relaxed bound over the restricted value on every lane, a restricted
+     tour replayed within every window at its value, the batch's cutset
+     rows, launches and times;
+ 10. `maximize` on a seeded 21-node instance (the N20 class) at W=256 to
+     gap 0 and to an exact DP over (visited set, last node) labels;
+ 11. for each of sop, srflp, lcs, psp and alp: a compile of 3 or 4 lanes
+     rooted at different depths whose every plane equals the CPU path's,
+     then `maximize` to gap 0 at a brute-force optimum (n <= 8);
+ 12. in no count: compiles at W=256 of the N20 TSPTW instance and of LCS
+     with 10 strings x 20 letters, sort-1 on the "merge" route, every
+     plane equal to the CPU path's;
 then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Every check raises on failure, so the script exits non-zero and prints no
-result; without CUDA it exits non-zero at once.  Four paths have launch
-counts of their own, each zeroed just before the path and read just after
-it: knapsack (phases 3-4), MISP (6-7), max2sat and max-cut (8, one count
-each); both kernels must have launched in each.  Phase 5 is in no count.
+result; without CUDA it exits non-zero at once.  Each path has launch
+counts of its own, zeroed just before the path and read just after it:
+knapsack (phases 3-4), MISP (6-7), max2sat and max-cut (8, one count
+each), TSPTW (9-10), sop, srflp, lcs, psp and alp (11, one count each);
+both kernels must have launched in each, and K1's count is also kept by
+route.  Phases 5 and 12 are in no count.
 """
 
 import dataclasses
@@ -71,6 +97,9 @@ SEED = 0
 K_LANES, N_ITEMS, WIDTH = 128, 2000, 256  # bench.py:184's knapsack shape
 MISP_N, MISP_P = 200, 0.1  # the MISP compile's graph: G(n, p), unit weights
 SMALL_N, SMALL_W, SMALL_BATCH = 16, 8, 16  # the max2sat and max-cut runs
+TSPTW_N, TSPTW_WINDOW = 61, 200.0  # Langevin's N60 class: 60 customers and a depot
+TSPTW_SMALL_N = 21  # the N20 class, for `maximize` against the exact oracle
+SMALL_MODELS_W, SMALL_MODELS_BATCH = 16, 4  # sop, srflp, lcs, psp, alp at n <= 8
 
 # An H100 SXM's peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and the
 # int32 rate of 64 INT32 lanes per SM x 132 SMs x 1.98 GHz, the boost clock
@@ -140,14 +169,14 @@ def bound(nbytes, ops):
 
 
 def sort_bound(L, C, nk, n_ops):
-    """K1: each operand read once and written once; a bitonic network of
-    C2/2 compare-exchanges per stage over log2(C2)(log2(C2)+1)/2 stages,
-    each compare-exchange 3 int32 operations (a compare and a select into
-    each output) per key word and for the row index."""
+    """K1, the same yardstick for every route: each operand read once and
+    written once, and a comparison sort's C2 log2(C2) compares per lane
+    (C2 = C padded to a power of two), each over the num_keys key words
+    and the row position at 3 int32 operations per word (two loads'
+    compare and a select)."""
     C2 = 1 << max(1, (C - 1).bit_length())
-    lg = C2.bit_length() - 1
-    exchanges = L * (C2 // 2) * lg * (lg + 1) // 2
-    return bound(8 * n_ops * L * C, exchanges * 3 * (nk + 1))
+    compares = L * C2 * (C2.bit_length() - 1)
+    return bound(8 * n_ops * L * C, compares * 3 * (nk + 1))
 
 
 def backward_bound(K, n, W, D):
@@ -159,15 +188,18 @@ def backward_bound(K, n, W, D):
     return bound(K * n * (9 * C + 30 * W) + K * (8 * W + 4), K * n * (14 * C + 30 * W))
 
 
-def sort_case(torch, gen, L, C, nk, npay, dev):
+def sort_case(torch, gen, L, C, nk, npay, dev, ties=False):
     """Operands shaped like the engine's sorts: a 0/1 validity key, wide
-    keys, a unique final key (-idx), random payloads."""
+    keys, a unique final key (-idx), random payloads; with `ties` every
+    key is drawn from {0, 1} and none is unique."""
     ri = lambda lo, hi: torch.randint(lo, hi, (L, C), generator=gen, device=dev,
                                       dtype=torch.int32)
-    keys = [ri(0, 2)] + [ri(-5000, 5000) for _ in range(nk - 2)]
+    if ties:
+        return [ri(0, 2) for _ in range(nk)] + [ri(-(1 << 20), 1 << 20) for _ in range(npay)]
+    keys = [ri(0, 2)] + [ri(-5000, 5000) for _ in range(max(0, nk - 2))]
     keys.append(-torch.argsort(torch.rand((L, C), generator=gen, device=dev), dim=1)
                 .to(torch.int32))
-    return keys + [ri(-(1 << 20), 1 << 20) for _ in range(npay)]
+    return keys[-nk:] + [ri(-(1 << 20), 1 << 20) for _ in range(npay)]
 
 
 def backward_case(torch, gen, K, n, W, D, dev):
@@ -191,36 +223,71 @@ def backward_case(torch, gen, K, n, W, D, dev):
             torch.where(wlp, ri(-30, 30, (K, n, W)), INF).to(i32)]
 
 
-def phase_kernels(torch, dev):
-    """Phase 2: K1 and K2 against their plain versions on the card.
-    Returns {(kernel, case): row}, each row the case's JSON line."""
+# K1's cases: (label, lanes, rows, keys, payloads[, ties[, route]]), the
+# route `lane_sort_route`'s unless given.  The main paths' sorts, then each
+# route's boundaries.
+K1_CASES = [
+    ("sort1", K_LANES, WIDTH * 2, 4, 4),
+    ("sort2", K_LANES, WIDTH * 2, 4, 0),
+    # MISP at 200 vertices: 7 state words
+    ("misp_sort1", K_LANES, WIDTH * 2, 10, 11),
+    ("misp_sort2", K_LANES, WIDTH * 2, 11, 0),
+    # max2sat and max-cut at 16 variables: 16 state words, one ranking column
+    ("small_sort1", SMALL_BATCH, SMALL_W * 2, SMALL_N + 3, 3),
+    ("small_sort2", SMALL_BATCH, SMALL_W * 2, 4, 0),
+    ("non_pow2", 16, 300, 3, 2),
+    ("one_lane", 1, WIDTH * 2, 4, 4),
+    ("rows_32", K_LANES, 32, 4, 4),
+    ("rows_64", K_LANES, 64, 4, 4),
+    ("rows_2048", K_LANES, 2048, 4, 4),
+    ("keys_9", 16, 300, 9, 2),
+    # the new models' sorts at full width, past one block's shared memory:
+    # TSPTW N60 (8 state words, dominance on), SOP with 380 jobs in one
+    # lane, SRFLP n=60 (70 operands), LCS with 10 strings x 20 letters
+    ("tsptw_sort1", K_LANES, WIDTH * TSPTW_N, 11, 7),
+    ("tsptw_sort2", K_LANES, WIDTH * TSPTW_N, 4, 0),
+    ("sop380_sort1", 1, WIDTH * 380, 39, 3),
+    ("srflp60_sort1", 16, 64 * 60, 67, 3),
+    ("lcs10x20_sort1", K_LANES, WIDTH * 21, 13, 15),
+    # the "merge" route's boundaries: one row, a tile of T = 1024 rows
+    # less one, exactly, plus one; rows not a power of two; keys in {0, 1}
+    ("merge_rows_1", 4, 1, 3, 2, False, "merge"),
+    ("merge_rows_1023", 8, 1023, 11, 7, False, "merge"),
+    ("merge_rows_1024", 8, 1024, 11, 7, False, "merge"),
+    ("merge_rows_1025", 8, 1025, 11, 7, False, "merge"),
+    ("merge_rows_50000", 8, 50_000, 11, 7),
+    ("merge_ties", 8, 20_000, 6, 4, True),
+    # a shape both "perm" and "merge" take
+    ("perm_or_merge", K_LANES, 4096, 9, 2),
+]
+#: the route each K1 route is timed against, in turns
+K1_RIVAL = {"regs": "perm", "perm": "merge", "merge": None}
+
+
+def phase_kernels(torch, dev, extra_k1=()):
+    """Phase 2: K1 and K2 against their plain versions on the card (K1
+    also at the `extra_k1` cases, the small models' sorts).  Returns
+    {(kernel, case): row}, each row the case's JSON line."""
     from ddo_tpu_torch.engine import backward as bwd
     from ddo_tpu_torch.ops import sort as srt
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     rows = {}
-    # K1: the main path's sorts, then each route's boundaries
-    for label, L, C, nk, npay in [("sort1", K_LANES, WIDTH * 2, 4, 4),
-                                  ("sort2", K_LANES, WIDTH * 2, 4, 0),
-                                  # MISP at 200 vertices: 7 state words
-                                  ("misp_sort1", K_LANES, WIDTH * 2, 10, 11),
-                                  ("misp_sort2", K_LANES, WIDTH * 2, 11, 0),
-                                  # max2sat and max-cut at 16 variables: 16
-                                  # state words, one ranking column
-                                  ("small_sort1", SMALL_BATCH, SMALL_W * 2, SMALL_N + 3, 3),
-                                  ("small_sort2", SMALL_BATCH, SMALL_W * 2, 4, 0),
-                                  ("non_pow2", 16, 300, 3, 2),
-                                  ("one_lane", 1, WIDTH * 2, 4, 4),
-                                  ("rows_32", K_LANES, 32, 4, 4),
-                                  ("rows_64", K_LANES, 64, 4, 4),
-                                  ("rows_2048", K_LANES, 2048, 4, 4),
-                                  ("keys_9", 16, 300, 9, 2)]:
-        ops = sort_case(torch, gen, L, C, nk, npay, dev)
+    cases = K1_CASES + list(extra_k1)
+    if len({c[0] for c in cases}) != len(cases):
+        raise AssertionError("two K1 cases share a label")
+    for label, L, C, nk, npay, *opt in cases:
+        ties, forced = (list(opt) + [False, None])[:2]
+        ops = sort_case(torch, gen, L, C, nk, npay, dev, ties)
         ref = srt.multi_sort_plain(ops, nk)
-        route = srt.lane_sort_route(nk, C)
-        # both routes where both apply, each held to the plain version
-        routes = ["regs", "perm"] if route == "regs" else [route]
+        planned = srt.lane_sort_route(nk, C)
+        # a forced route is timed beside the one the shape would take
+        route = forced or planned
+        rival = planned if route != planned else K1_RIVAL[route]
+        # with tied keys only the stable routes give the plain version's
+        # payload order
+        routes = [route] + ([rival] if rival and not ties else [])
         for r_ in routes:
             got = srt.multi_sort_cuda(ops, nk, route=r_)
             torch.cuda.synchronize()
@@ -235,19 +302,25 @@ def phase_kernels(torch, dev):
         b_ms, b_by = sort_bound(L, C, nk, nk + npay)
         new_ms = sum(ms[route]) / len(ms[route])
         row = {"phase": "kernel", "kernel": "lane_sort", "case": label, "route": route,
-               "shape": [L, C], "keys": nk, "payloads": npay, "max_abs_err": err,
-               "ms": new_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "share_of_bound": b_ms / new_ms}
-        if route == "regs":
-            row["perm_route_ms"] = sum(ms["perm"]) / len(ms["perm"])
+               "shape": [L, C], "keys": nk, "payloads": npay, "ties": ties,
+               "max_abs_err": err, "ms": new_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "share_of_bound": b_ms / new_ms}
+        if len(routes) > 1:
+            row[f"{rival}_route_ms"] = sum(ms[rival]) / len(ms[rival])
         rows[("lane_sort", label)] = row
         log(json.dumps(row))
+        del ops, ref, got
     # K2: the main path's sweeps, then fewer layers than a ring block, and
     # the direct route (W not a multiple of 16; W too large for the ring)
     for label, K, n, W, D, reps in [("main", K_LANES, N_ITEMS, WIDTH, 2, 10),
                                     ("one_lane", 1, N_ITEMS, WIDTH, 2, 10),
                                     ("misp", K_LANES, MISP_N, WIDTH, 2, 20),
                                     ("small", SMALL_BATCH, SMALL_N, SMALL_W, 2, 50),
+                                    # the TSPTW compile's sweep: D = 61
+                                    ("tsptw", K_LANES, TSPTW_N, WIDTH, TSPTW_N, 5),
+                                    # the small models' maximize sweeps
+                                    ("small_models", SMALL_MODELS_BATCH, 8,
+                                     SMALL_MODELS_W, 9, 50),
                                     ("layers_3", K_LANES, 3, WIDTH, 2, 50),
                                     ("width_1100", 8, 50, 1100, 3, 20),
                                     ("direct", 4, 50, 4096, 2, 20)]:
@@ -573,59 +646,76 @@ def phase_misp_compile(torch, dev, n=MISP_N, p=MISP_P, K=K_LANES, W=WIDTH):
         raise AssertionError("compact and plane routes left different fringes")
 
 
+def compile_parity(torch, dev, name, bundle, W, dominance=None, within_one=()):
+    """A fused restricted + relaxed compile of 3 or 4 lanes rooted at
+    different depths (the root and cutset nodes of relaxed compiles of it
+    on the CPU) on the device and on the CPU: every plane equal, those in
+    `within_one` within one.  Returns (row, lanes, relaxed planes)."""
+    import numpy as np
+
+    import ddo_tpu_torch as tt
+    from ddo_tpu_torch.engine.mdd import sort_operands
+    from ddo_tpu_torch.ops import sort as srt
+
+    root = tt.root_subproblem(bundle.problem)
+    by_depth = {}
+    for cutset in (tt.FRONTIER, tt.LAST_EXACT_LAYER):
+        cpu = tt.DDCompiler(bundle, W, cutset, dominance=dominance, device="cpu")
+        for width in [w for w in (3, 1, 2, 4, 6, 8) if w <= W]:
+            cut = sorted(cpu.compile(tt.CompilationType.RELAXED, root, tt.NEG_INF,
+                                     width).drain_cutset(), key=lambda s: -s.depth)
+            for d, sub in {s.depth: s for s in cut}.items():
+                by_depth.setdefault(d, sub)
+            if len(by_depth) >= 3:
+                break
+        if len(by_depth) >= 3:
+            break
+    subs = [root] + list(by_depth.values())[:3]
+    if len({s.depth for s in subs}) < 3:
+        raise AssertionError(f"{name} fixture: lanes must be rooted at different depths")
+    planes = {}
+    cpu = tt.DDCompiler(bundle, W, tt.FRONTIER, dominance=dominance, device="cpu")
+    for c in (tt.DDCompiler(bundle, W, tt.FRONTIER, dominance=dominance, device=dev), cpu):
+        rs, xs = c.compile_fused(subs, tt.NEG_INF, [3, 5, W, 4][:len(subs)])
+        planes[c.device.type] = [b._planes for b in (rs, xs)]
+    keys = [k for k in planes["cpu"][0]._dev if k != "state"]
+    off_by_one = 0
+    for a, b in zip(planes[dev.type], planes["cpu"]):
+        for k in keys:
+            if k in within_one:
+                d = np.abs(a.get(k).astype(np.int64) - b.get(k))
+                off_by_one += int((d == 1).sum())
+                if d.max() > 1:
+                    raise AssertionError(f"{name} plane {k} differs by {d.max()} "
+                                         f"between {dev} and cpu")
+            elif not np.array_equal(a.get(k), b.get(k)):
+                raise AssertionError(f"{name} plane {k} differs between {dev} and cpu")
+        for k, v in b.get("state").items():
+            if not np.array_equal(a.get("state")[k], v):
+                raise AssertionError(f"{name} state plane {k} differs between {dev} and cpu")
+    nk = sort_operands(bundle, dominance)[0]
+    C = W * bundle.problem.domain_size
+    row = {"phase": "compile_vs_cpu", "model": name, "n": bundle.problem.nb_variables,
+           "lanes": len(subs), "root_depths": [s.depth for s in subs], "width": W,
+           "dominance": dominance is not None,
+           "sort1": {"shape": [len(subs), C], "keys": nk,
+                     "route": srt.lane_sort_route(nk, C)},
+           "planes": len(keys), "equal": True}
+    if within_one:
+        row.update(equal=not off_by_one, within_one=list(within_one), off_by_one=off_by_one)
+    return row, subs, planes[dev.type][1]
+
+
 def phase_cpu_parity(torch, dev):
     """Phase 5: small compiles on the device against the CPU path (which
     the CPU tests hold against ddo_tpu), every plane, lanes rooted at
     different depths: MISP (a dynamic order per lane, long arcs), golomb
     (a wide domain: lanes of width x 26 candidates, 9 keys, K1's "perm"
     route) and talentsched (two bitsets)."""
-    import numpy as np
-
     import ddo_tpu_torch as tt
-    from ddo_tpu_torch.core.types import host_batch
     from ddo_tpu_torch.models import golomb as go, talentsched as ta
-    from ddo_tpu_torch.ops import sort as srt
 
-    def parity(name, bundle, W, within_one=()):
-        root = tt.root_subproblem(bundle.problem)
-        cpu = tt.DDCompiler(bundle, W, tt.FRONTIER, device="cpu")
-        cut = sorted(cpu.compile(tt.CompilationType.RELAXED, root, tt.NEG_INF, 3).drain_cutset(),
-                     key=lambda s: -s.depth)
-        subs = [root] + list({s.depth: s for s in cut}.values())[:3]
-        if len({s.depth for s in subs}) < 3:
-            raise AssertionError(f"{name} fixture: lanes must be rooted at different depths")
-        planes = {}
-        for c in (tt.DDCompiler(bundle, W, tt.FRONTIER, device=dev), cpu):
-            rs, xs = c.compile_fused(subs, tt.NEG_INF, [3, 5, W, 4][:len(subs)])
-            planes[c.device.type] = [b._planes for b in (rs, xs)]
-        keys = [k for k in planes["cpu"][0]._dev if k != "state"]
-        off_by_one = 0
-        for a, b in zip(planes[dev.type], planes["cpu"]):
-            for k in keys:
-                if k in within_one:
-                    d = np.abs(a.get(k).astype(np.int64) - b.get(k))
-                    off_by_one += int((d == 1).sum())
-                    if d.max() > 1:
-                        raise AssertionError(f"{name} plane {k} differs by {d.max()} "
-                                             f"between {dev} and cpu")
-                elif not np.array_equal(a.get(k), b.get(k)):
-                    raise AssertionError(f"{name} plane {k} differs between {dev} and cpu")
-            for k, v in b.get("state").items():
-                if not np.array_equal(a.get("state")[k], v):
-                    raise AssertionError(f"{name} state plane {k} differs between {dev} and cpu")
-        st = host_batch(bundle.problem.initial_state())
-        nk = 3 + bundle.problem.pack(st).shape[1]
-        C = W * bundle.problem.domain_size
-        row = {"phase": "compile_vs_cpu", "model": name, "n": bundle.problem.nb_variables,
-               "lanes": len(subs), "root_depths": [s.depth for s in subs], "width": W,
-               "sort1": {"shape": [len(subs), C], "keys": nk,
-                         "route": srt.lane_sort_route(nk, C)},
-               "planes": len(keys), "equal": True}
-        if within_one:
-            row.update(equal=not off_by_one, within_one=list(within_one),
-                       off_by_one=off_by_one)
-        return row, subs, planes[dev.type][1]
-
+    parity = lambda *a, **k: compile_parity(torch, dev, *a, **k)
     bundle, _ = misp_bundle(tt, 40, 0.2, SEED + 1)
     row, subs, relaxed = parity("misp", bundle, 8)
     var_of = relaxed.get("var_of")
@@ -745,6 +835,335 @@ def phase_small_solve(torch, dev, model):
               width=SMALL_W, batch=SMALL_BATCH)
 
 
+def tsptw_oracle(dist, twe, twl):
+    """The shortest return time of a TSPTW tour (waiting allowed), by a
+    forward DP over (visited set, last node) labels that keeps the
+    earliest arrival of each: exact, since arriving later never helps.  A
+    label dies when it misses a window, or when some node still to visit
+    is out of reach even straight from here (the slack of n covers the
+    truncation of scaled distances, so no feasible tour is cut)."""
+    n = len(dist)
+    layer = {(1, 0): 0}
+    for _ in range(n - 1):
+        nxt = {}
+        for (mask, last), t in layer.items():
+            for j in range(1, n):
+                if mask >> j & 1:
+                    continue
+                a = max(t + int(dist[last][j]), int(twe[j]))
+                m2 = mask | 1 << j
+                if a > twl[j] or any(a + int(dist[j][k]) - n > twl[k]
+                                     for k in range(1, n) if not m2 >> k & 1):
+                    continue
+                if a < nxt.get((m2, j), a + 1):
+                    nxt[(m2, j)] = a
+        layer = nxt
+    ends = [max(t + int(dist[last][0]), int(twe[0])) for (_, last), t in layer.items()]
+    ends = [a for a in ends if a <= twl[0]]
+    return min(ends) if ends else None
+
+
+def replay_tour(pb, vals, pset):
+    """The return time of the tour `vals` (the nodes in depth order),
+    checking every window on the way."""
+    t, cur = 0, 0
+    for j in [int(vals[d]) for d in range(pb.nb_variables) if pset[d]]:
+        t = max(t + int(pb.dist[cur][j]), int(pb.twe[j]))
+        if t > pb.twl[j]:
+            raise AssertionError(f"tour misses the window of node {j}: {t} > {pb.twl[j]}")
+        cur = j
+    if cur != 0:
+        raise AssertionError("the tour does not end at the depot")
+    return t
+
+
+def phase_tsptw_compile(torch, dev, rows, K=K_LANES, W=WIDTH, n=TSPTW_N):
+    """Phase 9: the TSPTW path at full width.  A seeded 61-node instance
+    of Langevin's N60 shape, 128 root lanes at W=256 with the
+    zero-coordinate dominance filtering each layer: a restricted and a
+    relaxed compile, each followed by the solver's extraction (the card's
+    compact route).  Every lane's relaxed bound is at least its restricted
+    value, a restricted tour replays within every window at its value, and
+    both sorts of every layer take K1's "merge" route."""
+    import ddo_tpu_torch as tt
+    from ddo_tpu_torch.engine import backward as bwd
+    from ddo_tpu_torch.models import tsptw as ts
+    from ddo_tpu_torch.ops import sort as srt
+
+    pb = ts.generate_random(n, SEED, window=TSPTW_WINDOW)
+    bundle = tt.ModelBundle(pb, ts.TsptwRelax(pb), ts.TsptwRanking())
+    solver = tt.SequentialSolver(
+        bundle, width_heu=tt.TsptwWidth(n), buffer_width=W, batch=K, cache=tt.SimpleCache(),
+        cutset_type=tt.LAST_EXACT_LAYER, device=dev,
+        dominance=tt.SimpleDominanceChecker(ts.TsptwDominance(), n))
+    if not solver._compact or solver.compiler.width != W:
+        raise AssertionError("the TSPTW solver is not on the card's default route at W")
+    solver.cache.initialize(pb)
+    solver.dominance.prime(pb)
+    roots = [tt.root_subproblem(pb)] * K
+    best = {}
+    for label, comp in [("restricted", tt.CompilationType.RESTRICTED),
+                        ("relaxed", tt.CompilationType.RELAXED)]:
+        relaxed = label == "relaxed"
+        before = (srt.KERNEL_LAUNCHES, dict(srt.ROUTE_LAUNCHES), bwd.KERNEL_LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        batch = solver.compiler.compile_batch(comp, roots, tt.NEG_INF, [W] * K)
+        expanded = batch.total_expanded  # waits for the device
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        k1 = {r: srt.ROUTE_LAUNCHES[r] - before[1][r] for r in srt.ROUTE_LAUNCHES}
+        if k1["merge"] != 2 * n or srt.KERNEL_LAUNCHES - before[0] != 2 * n:
+            raise AssertionError(f"{label}: K1 did not sort every layer on its merge route: {k1}")
+        t0 = time.perf_counter()
+        ex = solver._extract_batch(batch, want_cutset=relaxed)
+        if relaxed:
+            solver._absorb_relaxed(list(zip(roots, batch)), roots, batch, ex)
+        else:
+            for dd in batch:
+                solver._maybe_update_best(dd)
+            solver._apply_cache_compact(ex)
+            solver._absorb_dominance_compact(ex)
+        extraction = time.perf_counter() - t0
+        best[label] = [dd.best_value() for dd in batch]
+        if not relaxed:
+            for k in (0, K - 1):
+                vals, pset = batch[k].best_solution()
+                if -replay_tour(pb, vals, pset) != best[label][k]:
+                    raise AssertionError(f"lane {k}: the restricted tour does not cost its value")
+        cut = ex.get("cut", {"count": 0, "lanes": ()})
+        k1_ms = rows[("lane_sort", "tsptw_sort1")]["ms"] + rows[("lane_sort", "tsptw_sort2")]["ms"]
+        log(json.dumps({
+            "phase": "tsptw_compile", "pass": label, "lanes": K, "n": n, "width": W,
+            "window": TSPTW_WINDOW, "best_value": best[label][0], "expanded": expanded,
+            "wall_s": wall, "ms_per_layer": 1e3 * wall / n,
+            "expansions_per_s": expanded / wall, "peak_bytes": peak,
+            "lane_sort_launches": srt.KERNEL_LAUNCHES - before[0], "lane_sort_routes": k1,
+            "lane_sort_ms_per_layer": k1_ms,
+            "fused_backward_launches": bwd.KERNEL_LAUNCHES - before[2],
+            "fused_backward_ms": rows[("fused_backward", "tsptw")]["ms"],
+            "fused_backward_route": rows[("fused_backward", "tsptw")]["route"],
+            "cache_rows": ex.get("cache", {}).get("count", 0),
+            "dominance_rows": ex.get("dom", {}).get("count", 0),
+            "cutset_rows": cut["count"], "cutset_cap_overflow": cut["count"] > len(cut["lanes"]),
+            "extraction_s": extraction,
+            "d2h_bytes": nbytes(ex) + nbytes(batch._planes._np),
+            "incumbent": solver.best_lb, "fringe": len(solver.fringe)}))
+        del batch, ex
+    for k in range(K):
+        if best["restricted"][k] is None or best["relaxed"][k] < best["restricted"][k]:
+            raise AssertionError(f"lane {k}: relaxed bound below the restricted value")
+
+
+def phase_tsptw_solve(torch, dev, n=TSPTW_SMALL_N, W=WIDTH, batch=16):
+    """Phase 10: `maximize` on a seeded 21-node instance (the N20 class:
+    lanes of 5,376 candidates, sort-1 on K1's "merge" route) at W=256 with
+    the cache and the dominance store, to gap 0 and to the exact DP
+    oracle's optimum; its tour replays within every window."""
+    import ddo_tpu_torch as tt
+    from ddo_tpu_torch.models import tsptw as ts
+
+    pb = ts.generate_random(n, SEED)
+    opt = tsptw_oracle(pb.dist, pb.twe, pb.twl)
+    sol = tt.maximize(pb, ts.TsptwRelax(pb), ts.TsptwRanking(), use_cache=True, width=W,
+                      batch=batch, device=dev,
+                      dominance=tt.SimpleDominanceChecker(ts.TsptwDominance(), n))
+    if opt is None or sol.aborted or sol.gap != 0 or sol.objective != -opt:
+        raise AssertionError(f"maximize(tsptw): {sol} vs exact optimum {opt}")
+    if replay_tour(pb, sol.assignment, [True] * n) != opt:
+        raise AssertionError("maximize(tsptw): the tour does not cost the optimum")
+    log(json.dumps({"phase": "solve", "model": "tsptw", "n": n, "optimum": -opt,
+                    "objective": sol.objective, "gap": sol.gap,
+                    "time_to_optimum_s": sol.duration, "width": W, "batch": batch}))
+
+
+# ------------------------------------------- sop, srflp, lcs, psp, alp
+def sop_brute(dist):
+    """The cheapest job order 0 -> ... -> n-1 honouring the -1 precedences
+    (dist[i][j] == -1: j before i), or None."""
+    n, best = len(dist), None
+    for perm in itertools.permutations(range(1, n - 1)):
+        seq, done, tot = [0, *perm, n - 1], set(), 0
+        for a, b in zip(seq, seq[1:]):
+            done.add(a)
+            if dist[a][b] == -1 or any(dist[b][j] == -1 and j not in done and j != b
+                                       for j in range(n)):
+                break
+            tot += int(dist[a][b])
+        else:
+            best = tot if best is None else min(best, tot)
+    return best
+
+
+def srflp_brute2(lengths, flows):
+    """Twice the least sum of flow x centre distance over all orders (in
+    half units, so exact in integers)."""
+    n, best = len(lengths), None
+    for perm in itertools.permutations(range(n)):
+        x, pos2 = 0, {}
+        for d in perm:
+            pos2[d] = 2 * x + int(lengths[d])
+            x += int(lengths[d])
+        tot = sum(int(flows[i][j]) * abs(pos2[i] - pos2[j])
+                  for i in range(n) for j in range(i + 1, n))
+        best = tot if best is None else min(best, tot)
+    return best
+
+
+def lcs_brute(strings):
+    """The longest common subsequence's length, by a DP over position
+    tuples."""
+    import functools
+
+    @functools.lru_cache(maxsize=None)
+    def go(pos):
+        best = 0
+        for c in set(strings[0][pos[0]:]):
+            nxt = []
+            for s_, p in zip(strings, pos):
+                if c not in s_[p:]:
+                    break
+                nxt.append(s_.index(c, p) + 1)
+            else:
+                best = max(best, 1 + go(tuple(nxt)))
+        return best
+
+    return go(tuple([0] * len(strings)))
+
+
+def psp_brute(pb):
+    """The least stocking + changeover cost, by a backward DP over (period,
+    demand heads, next item)."""
+    import functools
+
+    N, H = pb.n_items, pb.horizon
+    rem_tbl = pb.demands.cumsum(axis=1)
+
+    @functools.lru_cache(maxsize=None)
+    def go(t, heads, nxt):
+        if t < 0:
+            return 0 if all(h < 0 for h in heads) else None
+        rem = sum(int(rem_tbl[i][heads[i]]) for i in range(N) if heads[i] >= 0)
+        if rem > t + 1:
+            return None
+        best = go(t - 1, heads, nxt) if rem < t + 1 else None
+        for i in range(N):
+            if heads[i] >= t:
+                c = (int(pb.changeover[i][nxt]) if nxt >= 0 else 0) \
+                    + int(pb.stocking[i]) * (heads[i] - t)
+                nh = list(heads)
+                nh[i] = int(pb._prev_np[i][heads[i]])
+                r = go(t - 1, tuple(nh), i)
+                if r is not None and (best is None or c + r < best):
+                    best = c + r
+        return best
+
+    return go(H - 1, tuple(int(x) for x in pb._prev_np[:, H]), -1)
+
+
+def alp_brute(pb):
+    """The least total delay over every landing order and runway choice."""
+    C, R = pb.nb_classes, pb.nb_runways
+    nxt = [[0] for _ in range(C)]
+    for i in range(pb.nb_variables - 1, -1, -1):
+        nxt[pb.classes[i]].append(i)
+    best = [None]
+
+    def arrival(info, a, r):
+        t, c = info[r]
+        tgt = int(pb.target[a])
+        if t == 0 and c == -1:
+            return tgt
+        sep = pb.min_sep_to[pb.classes[a]] if c == -1 else pb.sep[c][pb.classes[a]]
+        return max(tgt, t + int(sep))
+
+    def go(rem, info, acc):
+        if best[0] is not None and acc >= best[0]:
+            return
+        if sum(rem) == 0:
+            best[0] = acc
+            return
+        for c in range(C):
+            if rem[c]:
+                a = nxt[c][rem[c]]
+                for r in range(R):
+                    t = arrival(info, a, r)
+                    if t <= pb.latest[a]:
+                        rem2 = list(rem)
+                        rem2[c] -= 1
+                        info2 = tuple(sorted(info[:r] + info[r + 1:] + ((t, c),)))
+                        go(tuple(rem2), info2, acc + t - int(pb.target[a]))
+
+    rem0 = [0] * C
+    for c in pb.classes:
+        rem0[c] += 1
+    go(tuple(rem0), tuple([(0, -1)] * R), 0)
+    return best[0]
+
+
+def small_models(tt):
+    """{name: (bundle, dominance or None, cutset, exact optimum)} for the
+    five small paths, each a seeded instance at n <= 8 (LCS: three strings
+    of 8 letters), its optimum from brute force on the host."""
+    from ddo_tpu_torch.models import alp as al, lcs as lc, psp as ps, sop as so, srflp as sr
+
+    out = {}
+    pb = so.generate_random(8, SEED, p_prec=0.15)
+    best = sop_brute(pb.dist.tolist())
+    out["sop"] = (tt.ModelBundle(pb, so.SopRelax(pb), so.SopRanking()), None, True,
+                  None if best is None else -best)
+    pb = sr.generate_random(7, SEED)
+    out["srflp"] = (tt.ModelBundle(pb, sr.SrflpRelax(pb), sr.SrflpRanking()), None, True,
+                    srflp_brute2(pb.lengths, pb.flows))
+    pb = lc.generate_random(3, 4, 8, SEED)
+    out["lcs"] = (tt.ModelBundle(pb, lc.LcsRelax(pb), lc.LcsRanking()), lc.LcsDominance(),
+                  False, lcs_brute([list(map(int, s_)) for s_ in pb.strings]))
+    pb = ps.generate_random(8, 3, SEED)
+    best = psp_brute(pb)
+    out["psp"] = (tt.ModelBundle(pb, ps.PspRelax(pb), ps.PspRanking()), None, True,
+                  None if best is None else -best)
+    pb = al.generate_random(8, 2, 1, SEED)
+    best = alp_brute(pb)
+    out["alp"] = (tt.ModelBundle(pb, al.AlpRelax(pb), al.AlpRanking()), al.AlpDominance(),
+                  False, None if best is None else -best)
+    return out
+
+
+def model_sort_case(name, bundle, dominance, W=SMALL_MODELS_W, L=SMALL_MODELS_BATCH):
+    """The K1 sort-1 case of a small model's `maximize` at width W and L
+    lanes: (label, L, W x D, keys, payloads)."""
+    from ddo_tpu_torch.engine.mdd import sort_operands
+
+    nk, n_ops, _ = sort_operands(bundle, dominance)
+    return (f"{name}_sort1", L, W * bundle.problem.domain_size, nk, n_ops - nk)
+
+
+def phase_small_model(torch, dev, name, spec, W=SMALL_MODELS_W, batch=SMALL_MODELS_BATCH):
+    """Phase 11: one of sop, srflp, lcs, psp, alp on the card: a compile of
+    3 or 4 lanes rooted at different depths whose every plane equals the
+    CPU path's, then `maximize` to gap 0 at the brute-force optimum."""
+    import ddo_tpu_torch as tt
+
+    bundle, dominance, lel, opt = spec
+    row, _, _ = compile_parity(torch, dev, name, bundle, W, dominance)
+    log(json.dumps(row))
+    pb = bundle.problem
+    dom = None if dominance is None else tt.SimpleDominanceChecker(dominance, pb.nb_variables)
+    sol = tt.maximize(pb, bundle.relaxation, bundle.ranking, lel=lel, use_cache=True,
+                      width=W, batch=batch, dominance=dom, device=dev)
+    row = {"phase": "solve", "model": name, "n": pb.nb_variables, "optimum": opt,
+           "objective": sol.objective, "gap": sol.gap, "time_to_optimum_s": sol.duration,
+           "width": W, "batch": batch}
+    got = sol.objective
+    if name == "srflp":  # the layout's cost is root_value - objective
+        got = round(2 * (pb.root_value - sol.objective))
+        row.update(optimum=None, cost=pb.root_value - sol.objective, brute_force_cost=opt / 2)
+    if sol.aborted or sol.gap != 0 or got != opt:
+        raise AssertionError(f"maximize({name}): {sol} vs brute force {opt}")
+    log(json.dumps(row))
+
+
 def main():
     import torch
 
@@ -774,19 +1193,27 @@ def main():
                         "kernels": ptxas_summary(cuda_build.ptxas_report(name))}))
 
     # ---- 2. kernels against their plain versions
-    rows = phase_kernels(torch, dev)
+    import ddo_tpu_torch as tt
 
-    # ---- 3-8. each path with its own launch counts: zeroed just before
+    models = small_models(tt)
+    rows = phase_kernels(torch, dev, [model_sort_case(name, spec[0], spec[1])
+                                      for name, spec in models.items()])
+
+    # ---- 3-11. each path with its own launch counts: zeroed just before
     # it, read just after, and both kernels must have launched in it
     launches = {}
 
     def counted(path, drive):
         srt.KERNEL_LAUNCHES = 0
+        srt.ROUTE_LAUNCHES.update({r: 0 for r in srt.ROUTE_LAUNCHES})
         bwd.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
         drive()
         launches[path] = {"lane_sort": srt.KERNEL_LAUNCHES,
                           "fused_backward": bwd.KERNEL_LAUNCHES}
-        log(json.dumps({"phase": "launches", "path": path, **launches[path]}))
+        log(json.dumps({"phase": "launches", "path": path, **launches[path],
+                        "lane_sort_routes": dict(srt.ROUTE_LAUNCHES),
+                        "seconds": time.perf_counter() - t0}))
         if not all(launches[path].values()):
             raise AssertionError(f"a kernel of the {path} path never launched: "
                                  f"{launches[path]}")
@@ -799,17 +1226,43 @@ def main():
         phase_misp_compile(torch, dev)
         phase_small_solve(torch, dev, "misp")
 
+    def tsptw():
+        phase_tsptw_compile(torch, dev, rows)
+        phase_tsptw_solve(torch, dev)
+
     counted("knapsack", knapsack)
     phase_cpu_parity(torch, dev)  # outside every count
     counted("misp", misp)
     counted("max2sat", lambda: phase_small_solve(torch, dev, "max2sat"))
     counted("mcp", lambda: phase_small_solve(torch, dev, "mcp"))
+    counted("tsptw", tsptw)
+    for name, spec in models.items():
+        counted(name, lambda: phase_small_model(torch, dev, name, spec))
+
+    # the N20 class at W=256 (lanes of 5,376 candidates: sort-1 on the
+    # merge route) and LCS with 10 strings over 20 letters, both in no
+    # count: the card's planes equal the CPU's through the merge route
+    from ddo_tpu_torch.models import lcs as lc, tsptw as ts
+
+    pb = ts.generate_random(TSPTW_SMALL_N, SEED)
+    row, _, _ = compile_parity(torch, dev, "tsptw",
+                               tt.ModelBundle(pb, ts.TsptwRelax(pb), ts.TsptwRanking()),
+                               WIDTH, ts.TsptwDominance())
+    pb = lc.generate_random(10, 20, 60, SEED)
+    row2, _, _ = compile_parity(torch, dev, "lcs",
+                                tt.ModelBundle(pb, lc.LcsRelax(pb), lc.LcsRanking()),
+                                WIDTH, lc.LcsDominance())
+    for r in (row, row2):
+        if r["sort1"]["route"] != "merge":
+            raise AssertionError(f"{r['model']} fixture: sort-1 is to take the merge route")
+        log(json.dumps(r))
 
     kernels = []
-    for path, sort_case_, backward_case_ in [("knapsack", "sort1", "main"),
-                                             ("misp", "misp_sort1", "misp"),
-                                             ("max2sat", "small_sort1", "small"),
-                                             ("mcp", "small_sort1", "small")]:
+    paths = [("knapsack", "sort1", "main"), ("misp", "misp_sort1", "misp"),
+             ("max2sat", "small_sort1", "small"), ("mcp", "small_sort1", "small"),
+             ("tsptw", "tsptw_sort1", "tsptw")]
+    paths += [(name, f"{name}_sort1", "small_models") for name in models]
+    for path, sort_case_, backward_case_ in paths:
         for name, src, replaces, main_case in [
             ("lane_sort", "ddo_tpu_torch/csrc/lane_sort.cu",
              "ddo_tpu/ops/sort_pallas.py:285", sort_case_),

@@ -3,12 +3,13 @@ CUDA: the port of `ddo_tpu` (JAX, TPU) to an NVIDIA H100.
 
 The same design as ddo_tpu: restricted and relaxed MDDs compiled over
 whole layers as dense masked tensors, K subproblems per superstep, and a
-best-first branch-and-bound over their exact cutsets.  Six of ddo_tpu's
-models are ported (`models/`: knapsack, misp, max2sat, mcp, golomb,
-talentsched).  The two functions
-ddo_tpu wrote as Pallas kernels run as hand-written CUDA kernels on a GPU
-(K1, the per-lane multi-key sort in `ops/sort.py`; K2, the fused backward
-sweep in `engine/backward.py`) and as plain PyTorch on the CPU.
+best-first branch-and-bound over their exact cutsets.  All twelve of
+ddo_tpu's models are ported (`models/`: knapsack, misp, max2sat, mcp,
+golomb, talentsched, tsptw, sop, srflp, lcs, psp, alp).  The two
+functions ddo_tpu wrote as Pallas kernels run as hand-written CUDA
+kernels on a GPU (K1, the per-lane multi-key sort in `ops/sort.py`; K2,
+the fused backward sweep in `engine/backward.py`) and as plain PyTorch on
+the CPU.
 
 The solver alias matrix mirrors solver/mod.rs:29-47 for the solvers that
 exist.
@@ -32,10 +33,12 @@ from ddo_tpu_torch.core.types import (
 )
 from ddo_tpu_torch.core.heuristics import (
     Cutoff,
+    DivBy,
     FixedWidth,
     NbUnassignedWidth,
     NoCutoff,
     TimeBudget,
+    Times,
     WidthHeuristic,
 )
 from ddo_tpu_torch.engine.mdd import BufferOverflow, CompiledDD, DDCompiler
@@ -54,6 +57,9 @@ from ddo_tpu_torch.search.fringe import (
 )
 from ddo_tpu_torch.search.solver import ParallelSolver, SequentialSolver, SolverStats
 from ddo_tpu_torch.api import Solution, maximize
+from ddo_tpu_torch.models.sop import SopWidth
+from ddo_tpu_torch.models.srflp import SrflpWidth
+from ddo_tpu_torch.models.tsptw import TsptwWidth
 
 from ddo_tpu_torch.utils.num import INF, NEG_INF
 

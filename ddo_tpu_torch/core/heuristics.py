@@ -2,7 +2,8 @@
 
 Counterpart of `ddo_tpu/core/heuristics.py` (reference:
 ddo/src/implementation/heuristics/):
-  * `FixedWidth` (width.rs:166), `NbUnassignedWidth` (width.rs:397);
+  * `FixedWidth` (width.rs:166), `NbUnassignedWidth` (width.rs:397),
+    decorators `Times` (width.rs:636) and `DivBy` (width.rs:875);
   * `NoCutoff` (cutoff.rs:160) and `TimeBudget` (cutoff.rs:302) — the
     reference spawns a timer thread flipping an AtomicBool; here a
     monotonic-clock check suffices since the solver polls between
@@ -43,6 +44,29 @@ class NbUnassignedWidth(WidthHeuristic):
 
     def max_width(self, sub):
         return max(1, self.nb_variables - int(sub.path_set.sum()))
+
+
+class Times(WidthHeuristic):
+    """`factor` times the inner heuristic's width (width.rs:636)."""
+
+    def __init__(self, factor: int, inner: WidthHeuristic):
+        self.factor = factor
+        self.inner = inner
+
+    def max_width(self, sub):
+        return self.factor * self.inner.max_width(sub)
+
+
+class DivBy(WidthHeuristic):
+    """The inner heuristic's width divided by `divisor`, at least 1
+    (width.rs:875)."""
+
+    def __init__(self, divisor: int, inner: WidthHeuristic):
+        self.divisor = divisor
+        self.inner = inner
+
+    def max_width(self, sub):
+        return max(1, self.inner.max_width(sub) // self.divisor)
 
 
 class Cutoff:

@@ -12,11 +12,12 @@ over the active lanes, in the same stable (lane, layer, slot) order.
 
 ddo_tpu compacts with a stable argsort of the mask and gathers a fixed
 number M of rows, because its compiler needs static shapes.  Here
-`torch.nonzero` of the flat mask gives the same rows in the same order;
-the caps M are kept, with ddo_tpu's meaning.  Dropping rows beyond M is
-sound for the cache and the dominance store (both only strengthen
-pruning); the cutset must be complete, so `cutset_rows` returns the true
-count and the solver falls back to the plane route when it exceeds M.
+`torch.nonzero` of the flat mask gives the same rows in the same order.
+The cache and dominance caps M are ddo_tpu's: dropping rows beyond them
+is sound (both stores only strengthen pruning).  The cutset must be
+complete, and its cap is the most rows a batch can have, so it never
+truncates; `cutset_rows` still returns the true count, and the solver
+falls back to the plane route if a smaller cap is ever exceeded.
 """
 
 from __future__ import annotations
@@ -126,11 +127,13 @@ def cutset_rows(cutflag, marked, value, rub, value_bot, rank0, keys, best_value,
 
 
 def extract_caps(K: int, n1: int, W: int):
-    """(M_cache, M_dom, M_cut) row caps for a [K, n1, W] batch, ddo_tpu's:
-    large enough that truncation is rare, small enough that the transfers
-    stay a few MB.  Cache and dominance truncation is sound (weaker
-    pruning only); a cutset overflow falls back to the plane route in the
-    solver."""
+    """(M_cache, M_dom, M_cut) row caps for a [K, n1, W] batch.  The cache
+    and dominance caps are ddo_tpu's, large enough that truncation is rare
+    and small enough that the transfers stay a few MB; their truncation is
+    sound (weaker pruning only).  The cutset cap is K x n1 x W, every row
+    of the batch: `torch.nonzero` sizes the selection, so a cap buys
+    nothing there, and ddo_tpu's 16,384 rows were below a full 128-lane
+    batch at width 256."""
     N = K * n1 * W
     cap = lambda m: int(min(m, max(256, 1 << (N - 1).bit_length())))
-    return cap(65536), cap(131072), cap(16384)
+    return cap(65536), cap(131072), N

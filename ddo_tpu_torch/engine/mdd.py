@@ -938,15 +938,12 @@ def paths_batch_multi(planes: _BatchPlanes, lanes, layers, slots, roots):
     return vals, pset
 
 
-def _check_sort_operands(bundle: ModelBundle, dominance, width: int):
-    """Raise when a layer's sorts at buffer width `width` are beyond kernel
-    K1, which sorts every layer on a card: sort-1 carries the validity key,
-    the packed state words, -value and -index as keys, then dval, pexact,
-    the long-arc flag, the ranking columns and the dominance columns as
-    payloads, at most `MAX_OPERANDS` in one launch; sort-2 carries the
-    survivor key, -value, the ranking columns and -index; and a lane of
-    width * domain_size rows of either must fit one of K1's routes.  The
-    plain sort of the CPU route has no such limit."""
+def sort_operands(bundle: ModelBundle, dominance):
+    """(sort-1 keys, sort-1 operands, sort-2 keys) of every layer's two
+    sorts: sort-1 carries the validity key, the packed state words, -value
+    and -index as keys, then dval, pexact, the long-arc flag, the ranking
+    columns and the dominance columns as payloads; sort-2 carries the
+    survivor key, -value, the ranking columns and -index."""
     problem = bundle.problem
     st = host_batch(problem.initial_state())
     Kk = problem.pack(st).shape[1]
@@ -954,13 +951,25 @@ def _check_sort_operands(bundle: ModelBundle, dominance, width: int):
     n_ops = 5 + Kk + R + int(has_long_arcs(problem))
     if dominance is not None and dominance.key_cols(st) is not None:
         n_ops += dominance.key_cols(st).shape[1] + dominance.coord_cols(st).shape[1]
+    return 3 + Kk, n_ops, 3 + R
+
+
+def _check_sort_operands(bundle: ModelBundle, dominance, width: int):
+    """Raise when a layer's sorts (`sort_operands`) at buffer width
+    `width` are beyond kernel K1, which sorts every layer on a card: at
+    most `MAX_OPERANDS` in one call, and a lane of width * domain_size rows
+    must fit one of K1's routes (the "merge" route takes any lane of up to
+    `MERGE_MAX_ROWS` rows).  The plain sort of the CPU route has no such
+    limit."""
+    problem = bundle.problem
+    nk1, n_ops, nk2 = sort_operands(bundle, dominance)
     if n_ops > sort_ops.MAX_OPERANDS:
         raise ValueError(
             f"DDCompiler: model {problem.name!r} needs {n_ops} sort operands "
             f"per layer (state key words, ranking and dominance columns); one "
-            f"launch of the lane sort takes {sort_ops.MAX_OPERANDS}")
+            f"call of the lane sort takes {sort_ops.MAX_OPERANDS}")
     C = width * problem.domain_size
-    for what, nk in (("sort-1", 3 + Kk), ("sort-2", 3 + R)):
+    for what, nk in (("sort-1", nk1), ("sort-2", nk2)):
         try:
             sort_ops.lane_sort_route(nk, C)
         except ValueError as e:

@@ -1,12 +1,15 @@
 """Where the time of one K-lane compile goes on a GPU.
 
-    python -m ddo_tpu_torch.profile_compile [knapsack|misp]
+    python -m ddo_tpu_torch.profile_compile [knapsack|misp|tsptw]
 
 Runs one of `chip_smoke.py`'s real-size shapes, a relaxed `compile_batch`
 of 128 root lanes at buffer width 256 on `cuda:0`, of
 `generate_uncorrelated(2000, 1000, 1, 100, seed=0)` (knapsack, the
-default) or of `generate_gnp(200, 0.1, seed=0)` (misp: a dynamic order,
-long arcs, 7-word bitset states): once to warm up, three times timed on the
+default), of `generate_gnp(200, 0.1, seed=0)` (misp: a dynamic order,
+long arcs, 7-word bitset states) or of the 61-node TSPTW instance
+`tsptw.generate_random(61, 0, window=200.0)` with its dominance filter
+(lanes of 15,616 candidates, K1's "merge" route): once to warm up, three
+times timed on the
 wall clock (the compile is bound by the host, whose speed varies from run
 to run), and once under `torch.profiler`.  Prints one JSON line: the
 median wall time (total and per layer) and every timed run's, the kernel
@@ -14,7 +17,8 @@ launches (total and per layer, counted from the CUDA runtime's launch
 calls), the device time (the sum of every kernel's and copy's own device
 time), the device's idle share of the median unprofiled wall time, the
 port's own kernels (K1 `lane_sort_*`, K2 `backward_*`: calls, device time
-per call) and the top device-time entries.  The profiler's table goes to
+per call; the "merge" route's three kernels are `merge_*`) and the top
+device-time entries.  The profiler's table goes to
 standard error.
 """
 
@@ -50,20 +54,26 @@ def _on_device(entry) -> bool:
 
 
 def _bundle(tt, model):
+    """(bundle, dominance or None) of `model`'s real-size shape."""
     if model == "knapsack":
         from ddo_tpu_torch.models import knapsack as kp
 
         pb = kp.generate_uncorrelated(2000, 1000, 1, 100, SEED)
-        return tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking())
+        return tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()), None
+    if model == "tsptw":
+        from ddo_tpu_torch.models import tsptw as ts
+
+        pb = ts.generate_random(61, SEED, window=200.0)
+        return tt.ModelBundle(pb, ts.TsptwRelax(pb), ts.TsptwRanking()), ts.TsptwDominance()
     from ddo_tpu_torch.models import misp as mi
 
     pb, _ = mi.generate_gnp(200, 0.1, SEED)
-    return tt.ModelBundle(pb, mi.MispRelax(pb), mi.MispRanking(pb))
+    return tt.ModelBundle(pb, mi.MispRelax(pb), mi.MispRanking(pb)), None
 
 
 def main(argv) -> int:
     model = argv[1] if len(argv) > 1 else "knapsack"
-    if model not in ("knapsack", "misp"):
+    if model not in ("knapsack", "misp", "tsptw"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -73,10 +83,11 @@ def main(argv) -> int:
     import ddo_tpu_torch as tt
 
     dev = torch.device("cuda", 0)
-    bundle = _bundle(tt, model)
+    bundle, dominance = _bundle(tt, model)
     pb = bundle.problem
     n_layers = pb.nb_variables
-    compiler = tt.DDCompiler(bundle, WIDTH, tt.LAST_EXACT_LAYER, device=dev)
+    compiler = tt.DDCompiler(bundle, WIDTH, tt.LAST_EXACT_LAYER, dominance=dominance,
+                             device=dev)
     roots = [tt.root_subproblem(pb)] * LANES
 
     def compile_once():
@@ -105,7 +116,8 @@ def main(argv) -> int:
     on_device = [e for e in entries if _on_device(e)]
     device_us = sum(_device_us(e) for e in on_device)
     top = sorted(on_device, key=_device_us, reverse=True)[:12]
-    ours = [e for e in on_device if "lane_sort" in e.key or "backward_" in e.key]
+    ours = [e for e in on_device
+            if any(k in e.key for k in ("lane_sort", "merge_", "backward_"))]
     analysis = time.perf_counter() - t0
 
     key = next((k for k in ("self_device_time_total", "self_cuda_time_total")

@@ -62,11 +62,14 @@ def _card():
 
 
 def _sorted_on_card(ops, nk, route=None):
-    """K1 on `ops`, checking it took one launch."""
+    """K1 on `ops`, checking it counted one call, on the route taken."""
     before = tsort.KERNEL_LAUNCHES
+    taken = route or tsort.lane_sort_route(nk, ops[0].shape[1])
+    on_route = tsort.ROUTE_LAUNCHES[taken]
     got = tsort.multi_sort_cuda(ops, nk, route=route)
     torch.cuda.synchronize()
-    assert tsort.KERNEL_LAUNCHES == before + 1  # one launch for any operand count
+    assert tsort.KERNEL_LAUNCHES == before + 1  # one call for any operand count
+    assert tsort.ROUTE_LAUNCHES[taken] == on_route + 1
     return got
 
 
@@ -165,17 +168,65 @@ def test_lane_sort_strided_operands_on_card():
         assert torch.equal(r, g)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,C,nk,npay,seed", [
+    (2, 1, 1, 1, 30),          # C = 1
+    (3, 1023, 3, 2, 31),       # C = T - 1 (T = 1024 rows per tile)
+    (3, 1024, 3, 2, 32),       # C = T
+    (3, 1025, 3, 2, 33),       # C = T + 1: a merge pass over a run of one row
+    (4, 5000, 11, 7, 34),      # C not a power of two, TSPTW's 11 keys
+    (128, 15_616, 11, 7, 35),  # TSPTW N60 sort-1 at width 256
+    (128, 15_616, 4, 0, 36),   # TSPTW N60 sort-2
+    (1, 97_280, 39, 5, 37),    # SOP-380 at width 256, one lane
+    (16, 3840, 64, 6, 38),     # SRFLP n=60: 70 operands
+    (128, 5376, 13, 8, 39),    # LCS 10 strings x 20 letters
+    (2, 700, 120, 8, 40),      # 128 operands, tiles of 256 rows
+])
+def test_lane_sort_merge_matches_plain_on_card(L, C, nk, npay, seed):
+    """The "merge" route at every tile boundary and at the new models'
+    sort shapes, bit-equal to the plain version."""
+    _card()
+    ops = [torch.from_numpy(o).cuda() for o in sort_operands(L, C, nk, npay, seed)]
+    ref = tsort.multi_sort_plain(ops, nk)
+    for r, g in zip(ref, _sorted_on_card(ops, nk, "merge")):
+        assert torch.equal(r, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,nk", [(1, 1), (3000, 2), (20_000, 5)])
+def test_lane_sort_merge_ties_and_strides_on_card(C, nk):
+    """Keys drawn from {0, 1}, with no unique final key: the position
+    breaks every tie, so every operand, payloads included, equals the
+    stable plain version's; the operands are column slices of one array
+    and a lane-broadcast key, read in place."""
+    _card()
+    rng = np.random.default_rng(C + nk)
+    wide = torch.from_numpy(rng.integers(0, 2, (5, C, nk + 2)).astype(np.int32)).cuda()
+    ops = [wide[:, :, t] for t in range(nk + 2)]
+    ops[0] = torch.from_numpy(rng.integers(0, 2, C).astype(np.int32)).cuda().expand(5, C)
+    ref = tsort.multi_sort_plain(ops, nk)
+    for r, g in zip(ref, _sorted_on_card(ops, nk, "merge")):
+        assert torch.equal(r, g)
+
+
 def test_lane_sort_route_choice():
     """The route by shape: registers up to REGS_MAX_KEYS keys and 2048
-    padded rows, the permutation in shared memory beyond, and a refusal
-    past shared memory."""
+    padded rows, the permutation in shared memory beyond, the multi-CTA
+    merge past shared memory, and a refusal past MAX_OPERANDS keys or the
+    merge route's rows."""
     route = tsort.lane_sort_route
     assert route(4, 512) == route(1, 1) == route(8, 2048) == route(1, 2) == "regs"
     assert route(9, 512) == route(4, 2049) == route(2, 4096) == route(42, 700) == "perm"
     assert route(10, 512) == route(11, 512) == "perm"  # MISP at 200 vertices
-    for nk, C in [(40, 4096), (2, 28_000)]:
-        with pytest.raises(ValueError, match="shared memory"):
-            route(nk, C)
+    # lanes whose keys pass one block's shared memory: LCS (C ~ 28k),
+    # TSPTW N60 at width 256, SOP-380 at width 256 in one lane
+    for nk, C in [(40, 4096), (2, 28_000), (11, 15_616), (39, 97_280), (128, 1000)]:
+        assert route(nk, C) == "merge"
+    with pytest.raises(ValueError, match="128 operands"):
+        route(129, 8)
+    assert route(2, tsort.MERGE_MAX_ROWS) == "merge"
+    with pytest.raises(ValueError, match="merge route"):
+        route(2, tsort.MERGE_MAX_ROWS + 1)
 
 
 def test_lane_sort_wrapper_refusals():
@@ -191,6 +242,9 @@ def test_lane_sort_wrapper_refusals():
         tsort.multi_sort_cuda([op] * 10, 9, route="regs")
     with pytest.raises(ValueError, match="route"):
         tsort.multi_sort_cuda([op], 1, route="radix")
+    with pytest.raises(ValueError, match="route"):  # keys past shared memory
+        tsort.multi_sort_cuda([torch.zeros((1, 28_000), dtype=torch.int32)] * 2, 2,
+                              route="perm")
     with pytest.raises(ValueError, match="CUDA device"):
         tsort.multi_sort_cuda([op] * tsort.MAX_OPERANDS, 1)
 

@@ -348,31 +348,34 @@ def test_counts_match_ddo_tpu_at_batch_1(name):
 
 def test_too_many_sort_operands_raises_at_construction():
     """A model whose sorts are beyond the lane sort kernel (more operands
-    than one launch takes, or lanes too long for its shared memory) is
-    refused when a compiler is built for a card: never a silent fall back
-    to the plain version there.  The check needs no card, and the CPU
-    route, whose plain sort has no such limit, takes the same models."""
+    than one call takes) is refused when a compiler is built for a card:
+    never a silent fall back to the plain version there.  The check needs
+    no card, and the CPU route, whose plain sort has no such limit, takes
+    the same models.  Lanes too long for one block's shared memory are no
+    longer refused: K1's "merge" route takes them."""
     from ddo_tpu_torch.engine.mdd import _check_sort_operands
+    from ddo_tpu_torch.ops import sort as srt
 
-    pb = tmi.Misp(64 * 32, [])  # 64 state words: 64 keys + 64 ranking columns
+    pb = tmi.Misp(64 * 32, [])  # 64 state words: 64 keys, 65 ranking columns, the long-arc flag
     bundle = tp.ModelBundle(pb, tmi.MispRelax(pb), tmi.MispRanking(pb))
-    with pytest.raises(ValueError, match="sort operands"):
+    with pytest.raises(ValueError, match="135 sort operands"):
         _check_sort_operands(bundle, None, 8)
     tt.DDCompiler(bundle, 8, device="cpu")
     # golomb's domain is wide: 12 marks give 73 values and 14 key words,
-    # so 256 nodes make lanes of 18,688 candidates
+    # so 256 nodes make lanes of 18,688 candidates, on the "merge" route
     pb = tgo.Golomb(12)
     bundle = tp.ModelBundle(pb, tgo.GolombRelax(pb), tgo.GolombRanking())
-    with pytest.raises(ValueError, match="width 256.*beyond the lane sort"):
-        _check_sort_operands(bundle, None, 256)
+    _check_sort_operands(bundle, None, 256)
+    assert srt.lane_sort_route(3 + 14, 256 * 73) == "merge"
     _check_sort_operands(bundle, None, 16)
     tt.DDCompiler(bundle, 256, device="cpu")
 
 
 def test_generators_and_exports():
     """The seeded generators give one instance per seed, and the package
-    exports what ddo_tpu's `__init__` does (the Pooled solver aliases
-    included), short of the modules still to port."""
+    exports what ddo_tpu's `__init__` does (the Pooled solver aliases and
+    the Times / DivBy width heuristics included), short of the modules
+    still to port."""
     a, ea = tmi.generate_gnp(30, 0.2, seed=1)
     b, eb = tmi.generate_gnp(30, 0.2, seed=1)
     assert ea == eb and np.array_equal(a.comp_adj, b.comp_adj)
@@ -385,5 +388,5 @@ def test_generators_and_exports():
     assert t.actor_mat.shape == (3, 6) and (t.actor_mat.sum(axis=1) > 0).all()
     # every name ddo_tpu exports and the port has a module for
     missing = set(ddo_tpu.__all__) - set(tt.__all__)
-    assert missing == {"DivBy", "Times", "NativeSolver", "DeviceLoopSolver",
+    assert missing == {"NativeSolver", "DeviceLoopSolver",
                        "MeshCompiler", "MeshSolver", "make_mesh", "parallel"}, missing
