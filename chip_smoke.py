@@ -75,14 +75,32 @@ Phases, each printing its own line(s):
  12. in no count: compiles at W=256 of the N20 TSPTW instance and of LCS
      with 10 strings x 20 letters, sort-1 on the "merge" route, every
      plane equal to the CPU path's;
+ 13. `DeviceLoopSolver` on MISP G(60, 0.2) against the exact optimum and
+     against `SequentialSolver` at the same settings, in turns
+     (sequential, device loop, device loop, sequential), at W=256 with 128
+     lanes (a slab of 8,192 rows, 16 supersteps per chunk, a cut cap of
+     4,096) and at W=8 with 16 lanes, every chunk under
+     `torch.cuda.set_sync_debug_mode("error")`; then an 8-row slab with a
+     4-row cut cap on a 20-item knapsack, whose slab-full drains,
+     cutset-overflow replays and reseeds must give the CPU run's counts
+     (K1 also runs the slab's pop and dedup sorts, one lane of 8,192 rows,
+     in phase 2);
+ 14. `NativeSolver` (the C++ fringe and cache, built by g++ from the
+     checkout) against exact optima: the n=200 knapsack of the README's
+     recipe with the dominance store, MISP G(60, 0.2), TSPTW 21 nodes at
+     W=256;
+ 15. `ddo_tpu_torch.cli.main` on a generated knapsack file: the default
+     flags, `--device-loop` and `--dot`, each to the DP optimum;
 then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Every check raises on failure, so the script exits non-zero and prints no
 result; without CUDA it exits non-zero at once.  Each path has launch
 counts of its own, zeroed just before the path and read just after it:
 knapsack (phases 3-4), MISP (6-7), max2sat and max-cut (8, one count
-each), TSPTW (9-10), sop, srflp, lcs, psp and alp (11, one count each);
-both kernels must have launched in each, and K1's count is also kept by
-route.  Phases 5 and 12 are in no count.
+each), TSPTW (9-10), sop, srflp, lcs, psp and alp (11, one count each),
+device_loop (13: the device loop's own runs, each zeroed just before it
+and read just after), native (14) and cli (15); both kernels must have
+launched in each, and K1's count is also kept by route.  Phases 5 and 12
+are in no count.
 """
 
 import dataclasses
@@ -100,6 +118,18 @@ SMALL_N, SMALL_W, SMALL_BATCH = 16, 8, 16  # the max2sat and max-cut runs
 TSPTW_N, TSPTW_WINDOW = 61, 200.0  # Langevin's N60 class: 60 customers and a depot
 TSPTW_SMALL_N = 21  # the N20 class, for `maximize` against the exact oracle
 SMALL_MODELS_W, SMALL_MODELS_BATCH = 16, 4  # sop, srflp, lcs, psp, alp at n <= 8
+# the device loop (phase 13): MISP G(60, 0.2) at W=256 with 128 lanes (3
+# supersteps), then at W=8 with 16 lanes (20 supersteps); a slab of 8,192
+# rows, 16 supersteps per chunk, a cut cap of 4,096 rows
+DL_N, DL_P = 60, 0.2
+DL_SHAPES = ((WIDTH, K_LANES), (8, 16))
+DL_SLAB, DL_CHUNK, DL_CUT = 8192, 16, 4096
+# NativeSolver (phase 14): the drive recipe's knapsack, generate_uncorrelated's
+# (n, R, h, S, seed), at width 16 and 16 lanes
+NATIVE_KP, NATIVE_W, NATIVE_BATCH = (200, 1000, 50, 100, 2), 16, 16
+# the CLI (phase 15): a knapsack generate_uncorrelated(50, 1000, 1, 100, seed=1)
+# at the CLI's defaults (width 2, 4 lanes: an 8-slot buffer)
+CLI_KP, CLI_W, CLI_BATCH = (50, 1000, 1, 100, 1), 8, 4
 
 # An H100 SXM's peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and the
 # int32 rate of 64 INT32 lanes per SM x 132 SMs x 1.98 GHz, the boost clock
@@ -259,6 +289,11 @@ K1_CASES = [
     ("merge_ties", 8, 20_000, 6, 4, True),
     # a shape both "perm" and "merge" take
     ("perm_or_merge", K_LANES, 4096, 9, 2),
+    # the device loop's two slab sorts, one lane of 8,192 rows: the pop sort
+    # (ineligible, -ub, -value, slot) and the dedup sort at MISP-60's two
+    # state words (inactive, depth, 2 words, -value, slot)
+    ("slab_pop", 1, DL_SLAB, 4, 0),
+    ("slab_dedup", 1, DL_SLAB, 6, 0),
 ]
 #: the route each K1 route is timed against, in turns
 K1_RIVAL = {"regs": "perm", "perm": "merge", "merge": None}
@@ -321,6 +356,12 @@ def phase_kernels(torch, dev, extra_k1=()):
                                     # the small models' maximize sweeps
                                     ("small_models", SMALL_MODELS_BATCH, 8,
                                      SMALL_MODELS_W, 9, 50),
+                                    # the device loop's, NativeSolver's and
+                                    # the CLI's sweeps
+                                    ("dl_misp60", K_LANES, DL_N, WIDTH, 2, 20),
+                                    ("native_kp", NATIVE_BATCH, NATIVE_KP[0],
+                                     NATIVE_W, 2, 50),
+                                    ("cli_kp", CLI_BATCH, CLI_KP[0], CLI_W, 2, 50),
                                     ("layers_3", K_LANES, 3, WIDTH, 2, 50),
                                     ("width_1100", 8, 50, 1100, 3, 20),
                                     ("direct", 4, 50, 4096, 2, 20)]:
@@ -1164,6 +1205,188 @@ def phase_small_model(torch, dev, name, spec, W=SMALL_MODELS_W, batch=SMALL_MODE
     log(json.dumps(row))
 
 
+# ------------------------------------------- device loop, native, CLI
+def dl_fixture_bundle(tt):
+    """The forced-machinery knapsack: 20 items, profit = weight + 0..5,
+    capacity half the weight (tests/test_torch_device_loop.py)."""
+    import numpy as np
+
+    from ddo_tpu_torch.models import knapsack as kp
+
+    rng = np.random.default_rng(8)
+    w = rng.integers(10, 40, 20)
+    p = w + rng.integers(0, 6, 20)
+    pb = kp.Knapsack.from_numpy(int(w.sum() // 2), p, w)
+    return tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking())
+
+
+def solver_counts(s):
+    return {"best": s.best_value(), "ub": s.best_upper_bound(), "explored": s.explored_count,
+            "expanded": s.expanded_nodes, "supersteps": s.stats.supersteps,
+            "loop_events": dict(getattr(s, "loop_events", {}))}
+
+
+def phase_device_loop(torch, dev, reset, read, n=DL_N, shapes=DL_SHAPES,
+                      slab=DL_SLAB, chunk=DL_CHUNK, cut=DL_CUT):
+    """Phase 13: `DeviceLoopSolver` on MISP G(60, 0.2) against the exact
+    optimum and against `SequentialSolver` at the same settings, in turns
+    (sequential, device loop, device loop, sequential), at each of
+    `shapes` (width, lanes): W=256 with 128 lanes, then W=8 with 16 lanes
+    (20 supersteps); every chunk under `set_sync_debug_mode("error")`.
+    Then the tiny-slab fixture whose slab-full drains, cutset-overflow
+    replays and reseeds must give the CPU run's counts.  Returns the
+    launches of the device loop's own runs (each zeroed just before it,
+    read just after)."""
+    import ddo_tpu_torch as tt
+
+    bundle, edges = misp_bundle(tt, n, DL_P, SEED)
+    pb = bundle.problem
+    weight = [int(w) for w in pb.weight]
+    opt = exact_mis(n, edges, weight)
+    mine = {"lane_sort": 0, "fused_backward": 0}
+    routes = {}
+
+    def solver(kind, device, bundle, **kw):
+        if kind == "sequential":
+            return tt.SequentialSolver(bundle, device=device, **kw)
+        s = tt.DeviceLoopSolver(bundle, device=device, slab_cap=kw.pop("slab"),
+                                chunk_steps=kw.pop("chunk"), cut_cap=kw.pop("cut"), **kw)
+        s.sync_debug = "error"
+        return s
+
+    def run(kind, device, bundle, **kw):
+        s = solver(kind, device, bundle, **kw)
+        reset()
+        t0 = time.perf_counter()
+        done = s.maximize()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, by_route = read()
+        if kind == "device_loop" and torch.device(device).type == "cuda":
+            for k in mine:
+                mine[k] += got[k]
+            for r, c in by_route.items():
+                routes[r] = routes.get(r, 0) + c
+        return s, done, wall, got
+
+    for W, batch in shapes:
+        walls = {"sequential": [], "device_loop": []}
+        for kind in ("sequential", "device_loop", "device_loop", "sequential"):
+            loop = dict(slab=slab, chunk=chunk, cut=cut) if kind == "device_loop" else {}
+            s, done, wall, got = run(kind, dev, bundle, width_heu=tt.FixedWidth(W),
+                                     batch=batch, cache=tt.SimpleCache(), **loop)
+            if not done.is_exact or s.best_value() != opt or s.gap() != 0:
+                raise AssertionError(f"{kind} on MISP G({n}, {DL_P}): {s.best_value()} vs "
+                                     f"exact optimum {opt}")
+            vals, pset = s.best_solution()
+            check_independent_set(edges, weight,
+                                  [int(v) if p_ else 0 for v, p_ in zip(vals, pset)], opt, kind)
+            walls[kind].append(wall)
+            log(json.dumps({"phase": "device_loop", "solver": kind, "model": "misp", "n": n,
+                            "width": W, "batch": batch, **loop, "optimum": opt,
+                            "wall_s": wall, "launches": got, **solver_counts(s)}))
+        log(json.dumps({"phase": "device_loop_turns", "width": W, "batch": batch,
+                        "sequential_s": walls["sequential"],
+                        "device_loop_s": walls["device_loop"]}))
+
+    # the fixture: the same solver on the card and on the CPU, the card's
+    # extraction route (compact) on both
+    fixture = dl_fixture_bundle(tt)
+    counts = {}
+    for device in ("cpu", dev):
+        s = solver("device_loop", device, fixture, width_heu=tt.FixedWidth(2), batch=2,
+                    cache=tt.SimpleCache(), cutset_type=tt.FRONTIER, slab=8, chunk=4, cut=4)
+        s._compact = True
+        reset()
+        s.maximize()
+        got, by_route = read()
+        if torch.device(device).type == "cuda":
+            for k in mine:
+                mine[k] += got[k]
+            for r, c in by_route.items():
+                routes[r] = routes.get(r, 0) + c
+        counts[str(device)] = solver_counts(s)
+    cpu, card = counts["cpu"], counts[str(dev)]
+    ev = card["loop_events"]
+    log(json.dumps({"phase": "device_loop_fixture", "slab_cap": 8, "cut_cap": 4, "batch": 2,
+                    "card": card, "cpu": cpu}))
+    if card != cpu:
+        raise AssertionError(f"device-loop fixture: card {card} vs CPU {cpu}")
+    if not (ev["full"] and ev["cutov"] and ev["seeds"] >= 2):
+        raise AssertionError(f"device-loop fixture: the machinery did not run: {ev}")
+    return mine, routes
+
+
+def phase_native(torch, dev):
+    """Phase 14: `NativeSolver` (the C++ fringe and cache, built with g++
+    from the checkout) on the card against exact optima: the drive
+    recipe's knapsack (n=200) with the dominance store, MISP G(60, 0.2),
+    and the 21-node TSPTW at W=256."""
+    import ddo_tpu_torch as tt
+    from ddo_tpu_torch.models import knapsack as kp, tsptw as ts
+
+    pb = kp.generate_uncorrelated(*NATIVE_KP[:4], seed=NATIVE_KP[4])
+    misp, edges = misp_bundle(tt, DL_N, DL_P, SEED)
+    tw = ts.generate_random(TSPTW_SMALL_N, SEED)
+    cases = [
+        ("knapsack", tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()),
+         kp.dp_optimum(pb.capacity, pb.profit, pb.weight),
+         dict(width_heu=tt.FixedWidth(NATIVE_W), batch=NATIVE_BATCH,
+              dominance=tt.SimpleDominanceChecker(kp.KPDominance(), pb.nb_variables))),
+        ("misp", misp, exact_mis(DL_N, edges, [int(w) for w in misp.problem.weight]),
+         dict(width_heu=tt.FixedWidth(NATIVE_W), batch=NATIVE_BATCH)),
+        ("tsptw", tt.ModelBundle(tw, ts.TsptwRelax(tw), ts.TsptwRanking()),
+         -tsptw_oracle(tw.dist, tw.twe, tw.twl),
+         dict(width_heu=tt.FixedWidth(WIDTH), batch=16,
+              dominance=tt.SimpleDominanceChecker(ts.TsptwDominance(), TSPTW_SMALL_N))),
+    ]
+    for name, bundle, opt, kw in cases:
+        s = tt.NativeSolver(bundle, device=dev, **kw)
+        t0 = time.perf_counter()
+        done = s.maximize()
+        wall = time.perf_counter() - t0
+        if not done.is_exact or s.best_value() != opt or s.gap() != 0:
+            raise AssertionError(f"NativeSolver({name}): {s.best_value()} vs optimum {opt}")
+        log(json.dumps({"phase": "native", "model": name, "n": bundle.problem.nb_variables,
+                        "optimum": opt, "wall_s": wall, **solver_counts(s)}))
+
+
+def phase_cli(torch, dev):
+    """Phase 15: `python -m ddo_tpu_torch.cli knapsack <file>` in-process on
+    the card, on a generated instance written to a temporary file: the
+    default flags, `--device-loop` and `--dot`; the Objective line is the
+    DP optimum and the dot file a digraph."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from ddo_tpu_torch import cli
+    from ddo_tpu_torch.models import knapsack as kp
+
+    pb = kp.generate_uncorrelated(*CLI_KP[:4], seed=CLI_KP[4])
+    opt = kp.dp_optimum(pb.capacity, pb.profit, pb.weight)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "kp.txt")
+        with open(path, "w") as f:
+            f.write(f"{pb.nb_variables} {pb.capacity}\n")
+            f.writelines(f"{a} {b}\n" for a, b in zip(pb.profit, pb.weight))
+        dot = os.path.join(tmp, "root.dot")
+        for extra in ([], ["--device-loop"], ["--dot", dot]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                cli.main(["knapsack", path] + extra)
+            lines = out.getvalue().splitlines()
+            if f"Objective:  {opt}" not in lines or "Aborted:    False" not in lines:
+                raise AssertionError(f"cli {extra}: {lines} vs DP optimum {opt}")
+            log(json.dumps({"phase": "cli", "flags": extra, "optimum": opt,
+                            "lines": [l for l in lines if not l.startswith("Solution")]}))
+        with open(dot) as f:
+            if not f.read().startswith("digraph {"):
+                raise AssertionError("cli --dot: not a digraph")
+
+
 def main():
     import torch
 
@@ -1195,25 +1418,43 @@ def main():
     # ---- 2. kernels against their plain versions
     import ddo_tpu_torch as tt
 
+    from ddo_tpu_torch.models import knapsack as kp
+
     models = small_models(tt)
-    rows = phase_kernels(torch, dev, [model_sort_case(name, spec[0], spec[1])
-                                      for name, spec in models.items()])
+    extra = [model_sort_case(name, spec[0], spec[1]) for name, spec in models.items()]
+    # the compile sorts of the device loop's MISP, NativeSolver's and the
+    # CLI's knapsacks (both with the dominance columns)
+    extra.append(model_sort_case("dl_misp60", misp_bundle(tt, DL_N, DL_P, SEED)[0], None,
+                                 W=WIDTH, L=K_LANES))
+    for name, args, W, L in (("native_kp", NATIVE_KP, NATIVE_W, NATIVE_BATCH),
+                             ("cli_kp", CLI_KP, CLI_W, CLI_BATCH)):
+        pb = kp.generate_uncorrelated(*args[:4], seed=args[4])
+        extra.append(model_sort_case(name, tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()),
+                                     kp.KPDominance(), W=W, L=L))
+    rows = phase_kernels(torch, dev, extra)
 
     # ---- 3-11. each path with its own launch counts: zeroed just before
     # it, read just after, and both kernels must have launched in it
     launches = {}
 
-    def counted(path, drive):
+    def reset():
         srt.KERNEL_LAUNCHES = 0
         srt.ROUTE_LAUNCHES.update({r: 0 for r in srt.ROUTE_LAUNCHES})
         bwd.KERNEL_LAUNCHES = 0
+
+    def read():
+        return ({"lane_sort": srt.KERNEL_LAUNCHES, "fused_backward": bwd.KERNEL_LAUNCHES},
+                dict(srt.ROUTE_LAUNCHES))
+
+    def counted(path, drive):
+        """Drive one path between a reset and a read of the counts; a
+        drive that returns (launches, routes) counts its own runs only."""
+        reset()
         t0 = time.perf_counter()
-        drive()
-        launches[path] = {"lane_sort": srt.KERNEL_LAUNCHES,
-                          "fused_backward": bwd.KERNEL_LAUNCHES}
+        own = drive()
+        launches[path], routes = own if own else read()
         log(json.dumps({"phase": "launches", "path": path, **launches[path],
-                        "lane_sort_routes": dict(srt.ROUTE_LAUNCHES),
-                        "seconds": time.perf_counter() - t0}))
+                        "lane_sort_routes": routes, "seconds": time.perf_counter() - t0}))
         if not all(launches[path].values()):
             raise AssertionError(f"a kernel of the {path} path never launched: "
                                  f"{launches[path]}")
@@ -1238,6 +1479,9 @@ def main():
     counted("tsptw", tsptw)
     for name, spec in models.items():
         counted(name, lambda: phase_small_model(torch, dev, name, spec))
+    counted("device_loop", lambda: phase_device_loop(torch, dev, reset, read))
+    counted("native", lambda: phase_native(torch, dev))
+    counted("cli", lambda: phase_cli(torch, dev))
 
     # the N20 class at W=256 (lanes of 5,376 candidates: sort-1 on the
     # merge route) and LCS with 10 strings over 20 letters, both in no
@@ -1262,6 +1506,8 @@ def main():
              ("max2sat", "small_sort1", "small"), ("mcp", "small_sort1", "small"),
              ("tsptw", "tsptw_sort1", "tsptw")]
     paths += [(name, f"{name}_sort1", "small_models") for name in models]
+    paths += [("device_loop", "slab_pop", "dl_misp60"), ("native", "native_kp_sort1", "native_kp"),
+              ("cli", "cli_kp_sort1", "cli_kp")]
     for path, sort_case_, backward_case_ in paths:
         for name, src, replaces, main_case in [
             ("lane_sort", "ddo_tpu_torch/csrc/lane_sort.cu",

@@ -55,7 +55,13 @@ from ddo_tpu_torch.search.fringe import (
     SimpleFringe,
     SubProblemRanking,
 )
-from ddo_tpu_torch.search.solver import ParallelSolver, SequentialSolver, SolverStats
+from ddo_tpu_torch.search.solver import (
+    NativeSolver,
+    ParallelSolver,
+    SequentialSolver,
+    SolverStats,
+)
+from ddo_tpu_torch.search.device_loop import DeviceLoopSolver
 from ddo_tpu_torch.api import Solution, maximize
 from ddo_tpu_torch.models.sop import SopWidth
 from ddo_tpu_torch.models.srflp import SrflpWidth

@@ -137,7 +137,8 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
 
     `root_states` [K, ...], `root_values` / `root_depths` / `best_lb` /
     `eff_width` int32 [K] tensors on the compile device, `order` the
-    int32 [n] branching order or None for a dynamic one, `root_path_sets`
+    [n] branching order (host array or device tensor) or None for a
+    dynamic one, `root_path_sets`
     bool [K, n] the variables each root's path has decided (a dynamic
     order's starting `assigned`), `start` the first layer to run (at most
     every lane's root depth; `var_of` stays 0 above it under a dynamic
@@ -178,7 +179,8 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         var_of = torch.zeros((K, n), dtype=I32, device=device)
         assigned = root_path_sets
     else:
-        order_t = torch.as_tensor(np.asarray(order), dtype=torch.long, device=device)
+        order_t = (order.to(device=device, dtype=torch.long) if torch.is_tensor(order)
+                   else torch.as_tensor(np.asarray(order), dtype=torch.long, device=device))
         var_of = order_t.to(I32).expand(K, n)
 
     def full(shape, value, dtype=I32):

@@ -1,6 +1,6 @@
-"""Where the time of one K-lane compile goes on a GPU.
+"""Where the time of one K-lane compile, or of one search, goes on a GPU.
 
-    python -m ddo_tpu_torch.profile_compile [knapsack|misp|tsptw]
+    python -m ddo_tpu_torch.profile_compile [knapsack|misp|tsptw|search]
 
 Runs one of `chip_smoke.py`'s real-size shapes, a relaxed `compile_batch`
 of 128 root lanes at buffer width 256 on `cuda:0`, of
@@ -20,6 +20,18 @@ port's own kernels (K1 `lane_sort_*`, K2 `backward_*`: calls, device time
 per call; the "merge" route's three kernels are `merge_*`) and the top
 device-time entries.  The profiler's table goes to
 standard error.
+
+`search` runs chip_smoke phase 13's first shape instead: `maximize` of
+`SequentialSolver` and of `DeviceLoopSolver` (a slab of 8,192 rows, 16
+supersteps per chunk, a cut cap of 4,096) on MISP
+`generate_gnp(60, 0.2, seed=0)` at width 256 with 128 lanes and the
+cache: each once to warm up, then timed in turns (sequential, device
+loop, device loop, sequential), then each once under `torch.profiler`.
+Its JSON line gives per solver the wall times, supersteps, kernel
+launches (total and per superstep), host synchronizations (stream,
+device and event synchronize calls), copies, the device time, the
+device's idle share of the mean unprofiled wall time and the entries
+with the most host time of their own.
 """
 
 from __future__ import annotations
@@ -71,9 +83,62 @@ def _bundle(tt, model):
     return tt.ModelBundle(pb, mi.MispRelax(pb), mi.MispRanking(pb)), None
 
 
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+_COPY_CALLS = ("cudaMemcpyAsync", "cudaMemcpy")
+
+
+def _search(tt, dev) -> dict:
+    """The `search` mode (see the module doc)."""
+    from ddo_tpu_torch.models import misp as mi
+
+    pb, _ = mi.generate_gnp(60, 0.2, SEED)
+    bundle = tt.ModelBundle(pb, mi.MispRelax(pb), mi.MispRanking(pb))
+    kw = dict(width_heu=tt.FixedWidth(WIDTH), batch=LANES, device=dev)
+    make = {"sequential": lambda: tt.SequentialSolver(bundle, cache=tt.SimpleCache(), **kw),
+            "device_loop": lambda: tt.DeviceLoopSolver(
+                bundle, cache=tt.SimpleCache(), slab_cap=8192, chunk_steps=16,
+                cut_cap=4096, **kw)}
+
+    def solve(kind):
+        s = make[kind]()
+        s.maximize()
+        torch.cuda.synchronize()
+        return s
+
+    for kind in make:
+        solve(kind)
+    walls = {kind: [] for kind in make}
+    for kind in ("sequential", "device_loop", "device_loop", "sequential"):
+        t0 = time.perf_counter()
+        s = solve(kind)
+        walls[kind].append(time.perf_counter() - t0)
+    out = {"phase": "profile_search", "model": "misp", "n": pb.nb_variables,
+           "lanes": LANES, "width": WIDTH}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for kind in make:
+        with torch.profiler.profile(activities=acts) as prof:
+            s = solve(kind)
+        entries = prof.key_averages()
+        calls = lambda names: sum(e.count for e in entries if e.key in names)
+        device_us = sum(_device_us(e) for e in entries if _on_device(e))
+        wall = sum(walls[kind]) / len(walls[kind])
+        launches = calls(_LAUNCH_CALLS)
+        host = sorted(entries, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+        out[kind] = {"wall_runs_s": walls[kind], "supersteps": s.stats.supersteps,
+                     "best": s.best_value(), "launches": launches,
+                     "launches_per_superstep": launches / max(1, s.stats.supersteps),
+                     "syncs": calls(_SYNC_CALLS), "copies": calls(_COPY_CALLS),
+                     "device_ms": device_us / 1e3,
+                     "device_idle_share": 1.0 - device_us / 1e6 / wall,
+                     "top_host": [{"name": e.key, "count": e.count,
+                                   "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                                  for e in host]}
+    return out
+
+
 def main(argv) -> int:
     model = argv[1] if len(argv) > 1 else "knapsack"
-    if model not in ("knapsack", "misp", "tsptw"):
+    if model not in ("knapsack", "misp", "tsptw", "search"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -83,6 +148,9 @@ def main(argv) -> int:
     import ddo_tpu_torch as tt
 
     dev = torch.device("cuda", 0)
+    if model == "search":
+        print(json.dumps(_search(tt, dev)), flush=True)
+        return 0
     bundle, dominance = _bundle(tt, model)
     pb = bundle.problem
     n_layers = pb.nb_variables

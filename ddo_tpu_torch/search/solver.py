@@ -1,11 +1,13 @@
-"""Branch-and-bound solver driving batched DD compilations on a device.
+"""Branch-and-bound solvers driving batched DD compilations on a device.
 
 Counterpart of `ddo_tpu/search/solver.py`:
   * `SequentialSolver` (reference sequential.rs:202-526):
     `SequentialSolver(batch=1)` reproduces its node-at-a-time loop;
   * `ParallelSolver` (parallel.rs:287-653): instead of worker threads on a
     shared fringe, each superstep pops up to K subproblems and compiles K
-    restricted, then K relaxed, DDs in one K-lane engine pass.
+    restricted, then K relaxed, DDs in one K-lane engine pass;
+  * `NativeSolver`: the same superstep around the C++ fringe and cache of
+    `native/`.
 
 Extraction has two routes.  The plane route copies every plane the host
 reads to the host once (one `.cpu()` per plane, for all lanes) and selects
@@ -38,7 +40,8 @@ from ddo_tpu_torch.core.types import (
 )
 from ddo_tpu_torch.engine import extract as EX
 from ddo_tpu_torch.engine.mdd import CutoffInterrupt, DDCompiler, paths_batch_multi
-from ddo_tpu_torch.search.cache import Cache, EmptyCache
+from ddo_tpu_torch.native import NativeSearch
+from ddo_tpu_torch.search.cache import Cache, EmptyCache, SimpleCache
 from ddo_tpu_torch.search.dominance import DominanceChecker, EmptyDominanceChecker
 from ddo_tpu_torch.search.fringe import Fringe, NoDupFringe
 from ddo_tpu_torch.utils.num import INF, NEG_INF
@@ -516,3 +519,261 @@ class SequentialSolver:
 def ParallelSolver(bundle, batch=16, **kw):
     """Frontier parallelism (parallel.rs:287) as a K-lane superstep."""
     return SequentialSolver(bundle, batch=batch, **kw)
+
+
+class NativeSolver:
+    """Branch-and-bound driven by the C++ host runtime (`native/`): the
+    state-deduplicated fringe and the threshold cache live in C++, and the
+    per-superstep host work (pops, cache updates, pushes) crosses the FFI
+    as numpy batches, around the same superstep as `SequentialSolver
+    (batch=K)` on `device` ("cuda" by default, raising without a card;
+    "cpu" for the plain versions).  Counterpart of ddo_tpu's
+    `NativeSolver` (ddo_tpu/search/solver.py:630-933); it reads the
+    compiled batches by the plane route."""
+
+    def __init__(
+        self,
+        bundle: ModelBundle,
+        width_heu: Optional[WidthHeuristic] = None,
+        buffer_width: Optional[int] = None,
+        cutset_type: CutsetType = CutsetType.LAST_EXACT_LAYER,
+        use_cache: bool = True,
+        dominance: Optional[DominanceChecker] = None,
+        cutoff: Optional[Cutoff] = None,
+        batch: int = 8,
+        in_compile_filtering: bool = True,
+        *,
+        device="cuda",
+    ):
+        self.bundle = bundle
+        problem = bundle.problem
+        self.problem = problem
+        self.width_heu = width_heu or FixedWidth(max(2, problem.domain_size))
+        root = root_subproblem(problem)
+        W = buffer_width or max(problem.domain_size, self.width_heu.max_width(root))
+        W = max(8, 1 << (int(W) - 1).bit_length())
+        self.use_cache = use_cache
+        self.dominance = dominance
+        self.filtering = in_compile_filtering
+        dom_obj = dominance.dom if (dominance is not None and in_compile_filtering) else None
+        self.device = torch.device(device)
+        self.compiler = DDCompiler(bundle, W, cutset_type, dominance=dom_obj,
+                                   device=self.device)
+        # host mirror of the C++ threshold cache feeding the in-compilation
+        # snapshot tables (the C++ cache stays authoritative for must_explore)
+        self._cache_tables = SimpleCache() if (use_cache and in_compile_filtering) else None
+        if self._cache_tables is not None:
+            self._cache_tables.initialize(problem)
+        if dominance is not None and in_compile_filtering:
+            dominance.prime(problem)
+        self.cutoff = cutoff or NoCutoff()
+        self.compile_chunk = 32 if not isinstance(self.cutoff, NoCutoff) else None
+        self.batch = batch
+
+        self._root = root
+        self._root_key = np.frombuffer(root.key, np.int32)
+        self.ns = NativeSearch(problem.nb_variables, int(self._root_key.shape[0]))
+
+        self.best_lb = NEG_INF
+        self.best_ub = INF
+        self.best_sol = None
+        self.abort_proof = None
+        self.explored_count = 0
+        self.expanded_nodes = 0
+        self.stats = SolverStats()
+
+    # ------------------------------------------------------------------ API
+    def maximize(self) -> Completion:
+        self.stats.start = time.perf_counter()
+        self.ns.push_batch(self._root_key[None, :], [0], [self._root.value], [INF], [0],
+                           self._root.path_vals[None, :], self._root.path_set[None, :])
+        while True:
+            if self.cutoff.must_stop():
+                self._abort()
+                break
+            keys, depths, values, ubs, pvals, psets, popped = self.ns.pop_batch(
+                self.batch, self.best_lb)
+            self.explored_count += popped
+            if len(depths) == 0:
+                if len(self.ns) == 0:
+                    break
+                continue
+            self.best_ub = min(self.best_ub, max(int(ubs[0]), self.best_lb))
+            if self.use_cache:
+                keep = self.ns.cache_must_explore_batch(depths, keys, values)
+                keys, depths, values, ubs = keys[keep], depths[keep], values[keep], ubs[keep]
+                pvals, psets = pvals[keep], psets[keep]
+                if len(depths) == 0:
+                    continue
+            subs = [SubProblem(state=self.problem.unpack(keys[i]), value=int(values[i]),
+                               path_vals=pvals[i], path_set=psets[i], ub=int(ubs[i]),
+                               depth=int(depths[i]))
+                    for i in range(len(depths))]
+            widths = [max(1, self.width_heu.max_width(s)) for s in subs]
+            chunking = (self.compile_chunk is not None
+                        and self.problem.nb_variables > self.compile_chunk)
+            try:
+                if chunking:
+                    self._superstep_two_pass(subs, widths)
+                else:
+                    self._superstep_fused(subs, widths)
+            except CutoffInterrupt:
+                self._abort()
+                break
+
+        self.stats.total_s = time.perf_counter() - self.stats.start
+        if self.abort_proof is None:
+            self.best_ub = self.best_lb
+        return Completion(
+            is_exact=self.abort_proof is None,
+            best_value=self.best_lb if self.best_sol is not None else None,
+        )
+
+    def _superstep_fused(self, subs, widths):
+        """Restricted and relaxed passes in one `compile_fused`."""
+        t0 = time.perf_counter()
+        restricted, relaxed = self.compiler.compile_fused(
+            subs, self.best_lb, widths, **self._filter_tables())
+        t1 = time.perf_counter()
+        self.stats.restricted_s += t1 - t0
+        self.expanded_nodes += restricted.total_expanded + relaxed.total_expanded
+        improved = restricted.global_best > self.best_lb
+        need = []
+        for s, dd_r, dd_x in zip(subs, restricted, relaxed):
+            if improved:
+                self._maybe_update_best(dd_r)
+            self._absorb(dd_r)
+            if not dd_r.is_exact():
+                need.append((s, dd_x))
+        improved = relaxed.global_best > self.best_lb
+        for s, dd_x in need:
+            if improved:
+                self._maybe_update_best(dd_x)
+            self._absorb(dd_x)
+            if not dd_x.is_exact():
+                self._enqueue(dd_x, s.ub)
+        self.stats.host_s += time.perf_counter() - t1
+        self.stats.supersteps += 1
+
+    def _superstep_two_pass(self, subs, widths):
+        """Chunked restricted then relaxed compiles, interruptible by the
+        cutoff (`CutoffInterrupt`)."""
+        t0 = time.perf_counter()
+        restricted = self.compiler.compile_batch(
+            CompilationType.RESTRICTED, subs, self.best_lb, widths, cutoff=self.cutoff,
+            chunk_layers=self.compile_chunk, **self._filter_tables())
+        t1 = time.perf_counter()
+        self.stats.restricted_s += t1 - t0
+        self.expanded_nodes += restricted.total_expanded
+        need, widths2 = [], []
+        improved = restricted.global_best > self.best_lb
+        for s, dd, w in zip(subs, restricted, widths):
+            if improved:
+                self._maybe_update_best(dd)
+            self._absorb(dd)
+            if not dd.is_exact():
+                need.append(s)
+                widths2.append(w)
+        self.stats.host_s += time.perf_counter() - t1
+        self.stats.supersteps += 1
+        if not need:
+            return
+        t2 = time.perf_counter()
+        relaxed = self.compiler.compile_batch(
+            CompilationType.RELAXED, need, self.best_lb, widths2, cutoff=self.cutoff,
+            chunk_layers=self.compile_chunk, **self._filter_tables())
+        t3 = time.perf_counter()
+        self.stats.relaxed_s += t3 - t2
+        self.expanded_nodes += relaxed.total_expanded
+        improved = relaxed.global_best > self.best_lb
+        for s, dd in zip(need, relaxed):
+            if improved:
+                self._maybe_update_best(dd)
+            self._absorb(dd)
+            if not dd.is_exact():
+                self._enqueue(dd, s.ub)
+        self.stats.host_s += time.perf_counter() - t3
+
+    def _abort(self):
+        """Abort on cutoff with bound recovery from the pending fringe
+        (parallel.rs:479-497): the best pending ub caps the proved upper
+        bound before the fringe is cleared."""
+        self.abort_proof = Reason.CUTOFF_OCCURRED
+        ubs = self.ns.pop_batch(1, NEG_INF)[3]
+        if len(ubs):
+            self.best_ub = min(self.best_ub, max(int(ubs[0]), self.best_lb))
+        self.ns.clear()
+        self.ns.cache_clear()
+
+    def _filter_tables(self):
+        if not self.filtering:
+            return {}
+        dev = self.compiler.device
+        return dict(
+            cache_tab=self._cache_tables.snapshot(dev) if self._cache_tables is not None
+            else None,
+            dom_tab=self.dominance.snapshot(dev) if self.dominance is not None else None)
+
+    def set_primal(self, value, solution):
+        """abstraction/solver.rs:77: warm-start the incumbent."""
+        if value > self.best_lb:
+            self.best_lb = value
+            self.best_sol = solution
+
+    def _maybe_update_best(self, dd):
+        val = dd.best_exact_value()
+        if val is not None and val > self.best_lb:
+            self.best_lb = val
+            self.best_sol = dd.best_exact_solution()
+
+    def _absorb(self, dd):
+        """A compiled DD's cache rows (C++ cache and its host mirror) and
+        exact nodes (dominance store)."""
+        if self.use_cache:
+            depths, keys, thetas, explored = dd.cache_batch()
+            self.ns.cache_update_batch(depths, keys, thetas, explored)
+            if self._cache_tables is not None and len(depths):
+                self._cache_tables.update_batch(depths, keys, thetas, explored)
+        if self.dominance is not None and self.filtering and "dkey" in dd.o:
+            self.dominance.insert_batch(*dd.exact_nodes_batch())
+
+    def _enqueue(self, dd, node_ub):
+        with_dom = self.dominance is not None and "dkey" in dd.o
+        batch = dd.cutset_batch(with_dom=with_dom)
+        keys, depths, values, ubs, pvals, psets, scores = batch[:7]
+        ubs = np.minimum(ubs, node_ub)
+        keep = ubs > self.best_lb
+        if with_dom:
+            # check-only probe: the insertions happened in _absorb
+            keep &= ~self.dominance.is_dominated_batch(depths, batch[7], batch[8], values)
+        elif self.dominance is not None and len(depths):
+            for i in range(len(depths)):
+                res = self.dominance.is_dominated_or_insert(
+                    self.problem.unpack(keys[i]), keys[i].tobytes(), int(depths[i]),
+                    int(values[i]))
+                keep[i] &= not res.dominated
+        self.ns.push_batch(keys[keep], depths[keep], values[keep], ubs[keep],
+                           scores[keep].astype(np.int64), pvals[keep], psets[keep])
+
+    # ------------------------------------------------------------ queries
+    def best_value(self):
+        return self.best_lb if self.best_sol is not None else None
+
+    def best_solution(self):
+        return self.best_sol
+
+    def best_lower_bound(self):
+        return self.best_lb
+
+    def best_upper_bound(self):
+        return self.best_ub
+
+    def gap(self) -> float:
+        ub, lb = self.best_ub, self.best_lb
+        if ub >= INF or lb <= NEG_INF:
+            return 1.0
+        u, l = max(abs(ub), abs(lb)), min(abs(ub), abs(lb))
+        return (u - l) / u if u else 0.0
+
+    def explored(self):
+        return self.explored_count
