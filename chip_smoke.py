@@ -14,20 +14,22 @@ Phases, each printing its own line(s):
      route, the max2sat and max-cut sorts, TSPTW N60's two sorts at 128
      lanes x 15,616 rows, SOP with 380 jobs in one lane of 97,280 rows, 39
      keys, SRFLP n=60 with 70 operands, LCS with 10 strings x 20 letters,
-     those four on the "merge" route, and the small models' sorts; K2: 128
-     lanes x 2000 layers x W=256 x D=2, one lane, the MISP compile's 200
-     layers, the max2sat and max-cut sweeps, the TSPTW compile's 61 layers
-     x W=256 x D=61 and the small models' sweeps) and at each route's
-     boundaries (K1 at 32, 64 and 2048 rows and on its "perm" route; its
-     "merge" route at 1 row, at a tile of 1024 rows less one, exactly and
-     plus one, at 50,000 rows, and with every key in {0, 1}, where the
-     payloads too must be the stable plain version's; K2 with fewer layers
-     than a ring block, and on its direct route at W=1100 and W=4096),
-     each with its time, the plain version's, the least time the card
-     could take (`bound_ms`, bytes or operations, one yardstick for every
-     K1 route) and the share of it reached; each K1 route is timed in
-     turns beside the next one that takes the shape ("regs" beside
-     "perm", "perm" beside "merge");
+     those four on the "merge" route, phase 16's sorts past 128 operands
+     (141 and 226), and the small models' sorts; K2: 128 lanes x 2000
+     layers x W=256 x D=2, one lane, the MISP compile's 200 layers, the
+     max2sat and max-cut sweeps, the TSPTW compile's 61 layers x W=256 x
+     D=61, phase 16's and the small models' sweeps) and at each route's
+     boundaries (K1 at 32, 64 and 2048 rows; "perm" at 12 keys over 1,024
+     rows and one more; keys that tie on the 12 words a record carries
+     and differ later; "merge" at 1 row, at 1,023 to 1,025 rows, at its
+     tile and window boundaries, at 50,000 rows, and with every key in
+     {0, 1}, where the payloads too must be the stable plain version's; K2
+     with fewer layers than a ring block, and on its direct route at
+     W=1100 and W=4096), each with its time, the plain version's, the
+     least time the card could take (`bound_ms`, bytes or operations, one
+     yardstick for every K1 route) and the share of it reached; every K1
+     route that takes a case is checked and timed, in turns, and the
+     knapsack sorts' and one 141-operand call's host time per call;
   3. the main path at real size: a seeded uncorrelated knapsack with
      n=2000 (Pisinger's knapPI_1 family), a restricted and a relaxed
      compile of 128 root lanes at W=256 bracketing the exact DP optimum,
@@ -91,6 +93,11 @@ Phases, each printing its own line(s):
      W=256;
  15. `ddo_tpu_torch.cli.main` on a generated knapsack file: the default
      flags, `--device-loop` and `--dot`, each to the DP optimum;
+ 16. models past 128 sort operands: `_check_sort_operands` accepts
+     max2sat and max-cut at 135 and 220 variables, and compiles of 4 lanes
+     whose every plane equals the CPU path's: max2sat at 135 variables
+     (141 operands) at W=32 on K1's "perm" route and at W=256 on "merge",
+     max-cut at 135, max2sat at 220 (226 operands);
 then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Every check raises on failure, so the script exits non-zero and prints no
 result; without CUDA it exits non-zero at once.  Each path has launch
@@ -98,9 +105,15 @@ counts of its own, zeroed just before the path and read just after it:
 knapsack (phases 3-4), MISP (6-7), max2sat and max-cut (8, one count
 each), TSPTW (9-10), sop, srflp, lcs, psp and alp (11, one count each),
 device_loop (13: the device loop's own runs, each zeroed just before it
-and read just after), native (14) and cli (15); both kernels must have
-launched in each, and K1's count is also kept by route.  Phases 5 and 12
-are in no count.
+and read just after), native (14), cli (15) and wide (16); both kernels
+must have launched in each, and K1's count is also kept by route.  Phases
+5 and 12 are in no count.
+
+    python3 chip_smoke.py --parent DIR
+
+also times, in phase 2, the K1 of another checkout at DIR (a parent
+commit unpacked with `git archive`), on the route it would choose, in
+turns with this checkout's routes, and the host's time per call of both.
 """
 
 import dataclasses
@@ -117,6 +130,9 @@ MISP_N, MISP_P = 200, 0.1  # the MISP compile's graph: G(n, p), unit weights
 SMALL_N, SMALL_W, SMALL_BATCH = 16, 8, 16  # the max2sat and max-cut runs
 TSPTW_N, TSPTW_WINDOW = 61, 200.0  # Langevin's N60 class: 60 customers and a depot
 TSPTW_SMALL_N = 21  # the N20 class, for `maximize` against the exact oracle
+# past 128 sort operands (phase 16): max2sat and max-cut at 135 variables
+# (the frb15-9 instances' size, 141 operands), max2sat at 220 (frb20-11)
+WIDE_N, WIDE_N2 = 135, 220
 SMALL_MODELS_W, SMALL_MODELS_BATCH = 16, 4  # sop, srflp, lcs, psp, alp at n <= 8
 # the device loop (phase 13): MISP G(60, 0.2) at W=256 with 128 lanes (3
 # supersteps), then at W=8 with 16 lanes (20 supersteps); a slab of 8,192
@@ -144,13 +160,15 @@ def log(*a):
 
 def ptxas_summary(report):
     """{kernel: {"registers", "spill_stores", "spill_loads"}} from
-    `nvcc -Xptxas -v`'s report (template arguments kept as <N>)."""
+    `nvcc -Xptxas -v`'s report (integer template arguments kept, as <N>
+    or <N, CAP> with CAP the operand struct's capacity)."""
     out, name = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"_Z\d+(\w+?_kernel)(?:ILi(\d+)E)?", m.group(1))
-            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")) if k \
+            k = re.search(r"_Z\d+(\w+?_kernel)", m.group(1))
+            args = re.findall(r"ILi(\d+)E", m.group(1))
+            name = (k.group(1) + (f"<{', '.join(args)}>" if args else "")) if k \
                 else m.group(1)
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -221,15 +239,21 @@ def backward_bound(K, n, W, D):
 def sort_case(torch, gen, L, C, nk, npay, dev, ties=False):
     """Operands shaped like the engine's sorts: a 0/1 validity key, wide
     keys, a unique final key (-idx), random payloads; with `ties` every
-    key is drawn from {0, 1} and none is unique."""
+    key is drawn from {0, 1} and none is unique; with ties="prefix" the 12
+    keys a record carries (ops/sort.py PREFIX_WORDS) are drawn from {0, 1}
+    and the others from [-3, 3), so rows tie on the carried words and
+    differ later."""
     ri = lambda lo, hi: torch.randint(lo, hi, (L, C), generator=gen, device=dev,
                                       dtype=torch.int32)
+    pay = [ri(-(1 << 20), 1 << 20) for _ in range(npay)]
+    if ties == "prefix":
+        return [ri(0, 2) for _ in range(min(nk, 12))] + [ri(-3, 3) for _ in range(nk - 12)] + pay
     if ties:
-        return [ri(0, 2) for _ in range(nk)] + [ri(-(1 << 20), 1 << 20) for _ in range(npay)]
+        return [ri(0, 2) for _ in range(nk)] + pay
     keys = [ri(0, 2)] + [ri(-5000, 5000) for _ in range(max(0, nk - 2))]
     keys.append(-torch.argsort(torch.rand((L, C), generator=gen, device=dev), dim=1)
                 .to(torch.int32))
-    return keys[-nk:] + [ri(-(1 << 20), 1 << 20) for _ in range(npay)]
+    return keys[-nk:] + pay
 
 
 def backward_case(torch, gen, K, n, W, D, dev):
@@ -279,30 +303,90 @@ K1_CASES = [
     ("sop380_sort1", 1, WIDTH * 380, 39, 3),
     ("srflp60_sort1", 16, 64 * 60, 67, 3),
     ("lcs10x20_sort1", K_LANES, WIDTH * 21, 13, 15),
-    # the "merge" route's boundaries: one row, a tile of T = 1024 rows
-    # less one, exactly, plus one; rows not a power of two; keys in {0, 1}
+    # past 128 operands (phase 16's compiles, 4 lanes): max2sat at 135
+    # variables, W=32 ("perm") and W=256 ("merge"), 141 operands, and at
+    # 220 (226 operands), W=32
+    ("max2sat135_w32", 4, 32 * 2, WIDE_N + 3, 3),
+    ("max2sat135_w256", 4, WIDTH * 2, WIDE_N + 3, 3),
+    ("max2sat220_w32", 4, 32 * 2, WIDE_N2 + 3, 3),
+    # keys that tie on the 12 words a record carries and differ later
+    ("prefix_ties_perm", 16, 300, 16, 2, "prefix"),
+    ("prefix_ties_merge", 8, 20_000, 16, 2, "prefix"),
+    # the "merge" route's boundaries (ops/sort.py merge_plan): one row;
+    # lanes of 1,023-1,025 rows (one tile); 8 lanes of 2,049 rows (tiles of
+    # 2,048, the second of one row, and windows of 256); 128 lanes of 4,096
+    # rows (one tile) and of 4,097 (tiles of 4,096, windows of 2,048); rows
+    # not a power of two; keys in {0, 1}
     ("merge_rows_1", 4, 1, 3, 2, False, "merge"),
     ("merge_rows_1023", 8, 1023, 11, 7, False, "merge"),
     ("merge_rows_1024", 8, 1024, 11, 7, False, "merge"),
     ("merge_rows_1025", 8, 1025, 11, 7, False, "merge"),
+    ("merge_rows_2049", 8, 2049, 11, 7),
+    ("merge_tile_4096", K_LANES, 4096, 11, 7),
+    ("merge_tile_4097", K_LANES, 4097, 11, 7),
     ("merge_rows_50000", 8, 50_000, 11, 7),
     ("merge_ties", 8, 20_000, 6, 4, True),
-    # a shape both "perm" and "merge" take
+    # "perm" at 12 keys up to 1,024 rows, and one row past it
+    ("perm_rows_1024", 8, 1024, 12, 3),
+    ("perm_rows_1025", 8, 1025, 12, 3),
+    # a shape both "perm" and "merge" took before this route table
     ("perm_or_merge", K_LANES, 4096, 9, 2),
+    # one lane at the networks' longest: the route table's lane count
+    ("one_lane_2048", 1, 2048, 4, 4),
+    ("one_lane_1024_k11", 1, 1024, 11, 7),
     # the device loop's two slab sorts, one lane of 8,192 rows: the pop sort
     # (ineligible, -ub, -value, slot) and the dedup sort at MISP-60's two
     # state words (inactive, depth, 2 words, -value, slot)
     ("slab_pop", 1, DL_SLAB, 4, 0),
     ("slab_dedup", 1, DL_SLAB, 6, 0),
 ]
-#: the route each K1 route is timed against, in turns
-K1_RIVAL = {"regs": "perm", "perm": "merge", "merge": None}
+#: the cases whose host time per call is measured (phase 2): the knapsack
+#: sorts, 4 keys, and one call past 128 operands (the 12 KB struct)
+K1_HOST_TIMED = ("sort1", "sort2", "max2sat135_w32")
 
 
-def phase_kernels(torch, dev, extra_k1=()):
+def host_us(torch, fn, reps=200):
+    """Host time per call (us): `reps` calls queued behind a ~0.2 s device
+    spin, so that none waits on the device, timed on the host's clock."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
+
+
+def tree_sort(root):
+    """The K1 wrapper (`ddo_tpu_torch/ops/sort.py`) of another checkout at
+    `root`, e.g. a parent commit unpacked with `git archive`, built from
+    that checkout's own `csrc/lane_sort.cu` into its own `build/`, beside
+    this checkout's, so that phase 2 can time both in turns."""
+    import importlib.util
+    import os
+
+    def load(name, rel):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(root, rel))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    cb = load("parent_cuda_build", "ddo_tpu_torch/utils/cuda_build.py")
+    srt = load("parent_sort", "ddo_tpu_torch/ops/sort.py")
+    srt.cuda_build = cb
+    cb.build("lane_sort")
+    return srt
+
+
+def phase_kernels(torch, dev, extra_k1=(), parent=None):
     """Phase 2: K1 and K2 against their plain versions on the card (K1
-    also at the `extra_k1` cases, the small models' sorts).  Returns
-    {(kernel, case): row}, each row the case's JSON line."""
+    also at the `extra_k1` cases, the small models' sorts).  Every K1
+    route that takes a case is checked and timed, in turns (and, given
+    `parent`, another checkout's K1 wrapper from `tree_sort`, on the route
+    it would choose, first and last).  Returns {(kernel, case): row}, each
+    row the case's JSON line."""
     from ddo_tpu_torch.engine import backward as bwd
     from ddo_tpu_torch.ops import sort as srt
 
@@ -316,23 +400,26 @@ def phase_kernels(torch, dev, extra_k1=()):
         ties, forced = (list(opt) + [False, None])[:2]
         ops = sort_case(torch, gen, L, C, nk, npay, dev, ties)
         ref = srt.multi_sort_plain(ops, nk)
-        planned = srt.lane_sort_route(nk, C)
-        # a forced route is timed beside the one the shape would take
-        route = forced or planned
-        rival = planned if route != planned else K1_RIVAL[route]
-        # with tied keys only the stable routes give the plain version's
-        # payload order
-        routes = [route] + ([rival] if rival and not ties else [])
+        route = forced or srt.lane_sort_route(nk, C, L)
+        # every route is stable, so each gives the plain version's
+        # payload order under tied keys too
+        routes = [route] + [r for r in srt.ROUTE_LAUNCHES if r != route and srt._fits(r, nk, C)]
+        err = 0
         for r_ in routes:
             got = srt.multi_sort_cuda(ops, nk, route=r_)
             torch.cuda.synchronize()
-            err = max_abs_err(torch, ref, got)
+            err = max(err, max_abs_err(torch, ref, got))
             if err or not all(torch.equal(r, g) for r, g in zip(ref, got)):
                 raise AssertionError(f"K1 {label} ({r_}) disagrees with its plain version")
-        # in turns (old, new, new, old), so that both come from one card
-        ms = {r_: [] for r_ in routes}
-        for r_ in routes + routes[::-1]:
-            ms[r_].append(time_ms(torch, lambda: srt.multi_sort_cuda(ops, nk, route=r_), 50))
+        calls = {r_: (lambda r_=r_: srt.multi_sort_cuda(ops, nk, route=r_)) for r_ in routes}
+        if parent is not None and nk + npay <= parent.MAX_OPERANDS:
+            parent_route = parent.lane_sort_route(nk, C)
+            calls = {"parent": lambda: parent.multi_sort_cuda(ops, nk, route=parent_route),
+                     **calls}
+        # in turns (a, b, ..., b, a), so that all come from one card
+        ms = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            ms[k].append(time_ms(torch, calls[k], 50))
         plain_ms = time_ms(torch, lambda: srt.multi_sort_plain(ops, nk), 20)
         b_ms, b_by = sort_bound(L, C, nk, nk + npay)
         new_ms = sum(ms[route]) / len(ms[route])
@@ -340,8 +427,21 @@ def phase_kernels(torch, dev, extra_k1=()):
                "shape": [L, C], "keys": nk, "payloads": npay, "ties": ties,
                "max_abs_err": err, "ms": new_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by, "share_of_bound": b_ms / new_ms}
-        if len(routes) > 1:
-            row[f"{rival}_route_ms"] = sum(ms[rival]) / len(ms[rival])
+        for r_ in routes[1:]:
+            row[f"{r_}_route_ms"] = sum(ms[r_]) / len(ms[r_])
+        if "merge" in routes:
+            row["merge_plan"] = list(srt.merge_plan(L, C, nk))
+        if "parent" in calls:
+            row.update(parent_route=parent_route,
+                       parent_ms=sum(ms["parent"]) / len(ms["parent"]))
+        if label in K1_HOST_TIMED:
+            # the host's cost per call, parameter struct included, in turns
+            host = {k: [] for k in calls}
+            for k in list(calls) + list(calls)[::-1]:
+                host[k].append(host_us(torch, calls[k]))
+            row["host_us"] = sum(host[route]) / len(host[route])
+            if "parent" in calls:
+                row["parent_host_us"] = sum(host["parent"]) / len(host["parent"])
         rows[("lane_sort", label)] = row
         log(json.dumps(row))
         del ops, ref, got
@@ -362,6 +462,8 @@ def phase_kernels(torch, dev, extra_k1=()):
                                     ("native_kp", NATIVE_BATCH, NATIVE_KP[0],
                                      NATIVE_W, 2, 50),
                                     ("cli_kp", CLI_BATCH, CLI_KP[0], CLI_W, 2, 50),
+                                    # phase 16's max2sat at 135 variables, W=256
+                                    ("wide_max2sat", 4, WIDE_N, WIDTH, 2, 20),
                                     ("layers_3", K_LANES, 3, WIDTH, 2, 50),
                                     ("width_1100", 8, 50, 1100, 3, 20),
                                     ("direct", 4, 50, 4096, 2, 20)]:
@@ -740,7 +842,7 @@ def compile_parity(torch, dev, name, bundle, W, dominance=None, within_one=()):
            "lanes": len(subs), "root_depths": [s.depth for s in subs], "width": W,
            "dominance": dominance is not None,
            "sort1": {"shape": [len(subs), C], "keys": nk,
-                     "route": srt.lane_sort_route(nk, C)},
+                     "route": srt.lane_sort_route(nk, C, len(subs))},
            "planes": len(keys), "equal": True}
     if within_one:
         row.update(equal=not off_by_one, within_one=list(within_one), off_by_one=off_by_one)
@@ -1387,9 +1489,50 @@ def phase_cli(torch, dev):
                 raise AssertionError("cli --dot: not a digraph")
 
 
-def main():
+def phase_wide(torch, dev):
+    """Phase 16: models past 128 sort operands on the card, which it once refused:
+    `_check_sort_operands` accepts max2sat and max-cut at 135 and 220
+    variables, and compiles of 4 lanes rooted at different depths equal
+    the CPU path's on every plane: max2sat at 135 variables at W=32
+    (sort-1 on K1's "perm" route, 141 operands) and W=256 ("merge"),
+    max-cut at 135 (W=32) and max2sat at 220 (W=32, 226 operands)."""
+    import ddo_tpu_torch as tt
+    from ddo_tpu_torch.engine.mdd import _check_sort_operands
+    from ddo_tpu_torch.models import max2sat as ms, mcp as mc
+    from ddo_tpu_torch.ops import sort as srt
+
+    def bundle(model, n):
+        if model == "max2sat":
+            pb, _ = ms.generate_random(n, 3 * n, SEED)
+            return tt.ModelBundle(pb, ms.Max2SatRelax(pb), ms.Max2SatRanking())
+        pb, _ = mc.generate_random(n, 0.5, SEED)
+        return tt.ModelBundle(pb, mc.McpRelax(pb), mc.McpRanking())
+
+    for model in ("max2sat", "mcp"):
+        for n in (WIDE_N, WIDE_N2):
+            for W in (16, WIDTH):
+                _check_sort_operands(bundle(model, n), None, W)
+    for model, n, W, route in [("max2sat", WIDE_N, 32, "perm"), ("max2sat", WIDE_N, WIDTH, "merge"),
+                               ("mcp", WIDE_N, 32, "perm"), ("max2sat", WIDE_N2, 32, "perm")]:
+        before = dict(srt.ROUTE_LAUNCHES)
+        row, _, _ = compile_parity(torch, dev, model, bundle(model, n), W)
+        taken = {r: srt.ROUTE_LAUNCHES[r] - before[r] for r in before}
+        if row["sort1"]["route"] != route or not taken[route]:
+            raise AssertionError(f"{model} n={n} W={W}: sort-1 is to take the {route} route: "
+                                 f"{row}, {taken}")
+        log(json.dumps({**row, "sort_operands": n + 6, "lane_sort_routes": taken}))
+
+
+def main(argv):
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drives ddo_tpu_torch once on a GPU.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout (a parent commit unpacked with git archive) "
+                         "whose K1 phase 2 times in turns beside this one's")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -1431,7 +1574,8 @@ def main():
         pb = kp.generate_uncorrelated(*args[:4], seed=args[4])
         extra.append(model_sort_case(name, tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()),
                                      kp.KPDominance(), W=W, L=L))
-    rows = phase_kernels(torch, dev, extra)
+    parent = tree_sort(opts.parent) if opts.parent else None
+    rows = phase_kernels(torch, dev, extra, parent)
 
     # ---- 3-11. each path with its own launch counts: zeroed just before
     # it, read just after, and both kernels must have launched in it
@@ -1482,6 +1626,7 @@ def main():
     counted("device_loop", lambda: phase_device_loop(torch, dev, reset, read))
     counted("native", lambda: phase_native(torch, dev))
     counted("cli", lambda: phase_cli(torch, dev))
+    counted("wide", lambda: phase_wide(torch, dev))
 
     # the N20 class at W=256 (lanes of 5,376 candidates: sort-1 on the
     # merge route) and LCS with 10 strings over 20 letters, both in no
@@ -1507,7 +1652,7 @@ def main():
              ("tsptw", "tsptw_sort1", "tsptw")]
     paths += [(name, f"{name}_sort1", "small_models") for name in models]
     paths += [("device_loop", "slab_pop", "dl_misp60"), ("native", "native_kp_sort1", "native_kp"),
-              ("cli", "cli_kp_sort1", "cli_kp")]
+              ("cli", "cli_kp_sort1", "cli_kp"), ("wide", "max2sat135_w256", "wide_max2sat")]
     for path, sort_case_, backward_case_ in paths:
         for name, src, replaces, main_case in [
             ("lane_sort", "ddo_tpu_torch/csrc/lane_sort.cu",
@@ -1535,4 +1680,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

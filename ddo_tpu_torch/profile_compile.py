@@ -17,7 +17,7 @@ launches (total and per layer, counted from the CUDA runtime's launch
 calls), the device time (the sum of every kernel's and copy's own device
 time), the device's idle share of the median unprofiled wall time, the
 port's own kernels (K1 `lane_sort_*`, K2 `backward_*`: calls, device time
-per call; the "merge" route's three kernels are `merge_*`) and the top
+per call; the "merge" route's two kernels are `merge_*`) and the top
 device-time entries.  The profiler's table goes to
 standard error.
 

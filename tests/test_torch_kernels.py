@@ -211,22 +211,69 @@ def test_lane_sort_merge_ties_and_strides_on_card(C, nk):
 
 def test_lane_sort_route_choice():
     """The route by shape: registers up to REGS_MAX_KEYS keys and 2048
-    padded rows, the permutation in shared memory beyond, the multi-CTA
-    merge past shared memory, and a refusal past MAX_OPERANDS keys or the
-    merge route's rows."""
+    padded rows; the same network up to PERM_MAX_ROWS past them, with the
+    key words past PREFIX_WORDS staged in shared memory; the multi-CTA
+    merge beyond; and a refusal past MAX_OPERANDS keys or the merge
+    route's rows."""
     route = tsort.lane_sort_route
     assert route(4, 512) == route(1, 1) == route(8, 2048) == route(1, 2) == "regs"
-    assert route(9, 512) == route(4, 2049) == route(2, 4096) == route(42, 700) == "perm"
-    assert route(10, 512) == route(11, 512) == "perm"  # MISP at 200 vertices
-    # lanes whose keys pass one block's shared memory: LCS (C ~ 28k),
-    # TSPTW N60 at width 256, SOP-380 at width 256 in one lane
-    for nk, C in [(40, 4096), (2, 28_000), (11, 15_616), (39, 97_280), (128, 1000)]:
-        assert route(nk, C) == "merge"
-    with pytest.raises(ValueError, match="128 operands"):
-        route(129, 8)
+    assert route(4, 2048, 1) == route(4, 16, 16) == "regs"  # one lane; a tiny lane
+    assert route(9, 512) == route(12, 1024) == route(42, 700) == "perm"
+    assert route(10, 512, 128) == route(11, 512, 128) == "perm"  # MISP at 200 vertices
+    assert route(11, 1024, 1) == route(12, 33) == route(138, 33, 16) == "perm"
+    # tiny lanes past 8 keys: max2sat at 16, 135 and 220 variables, 16 or
+    # 4 lanes of 16 or 32 rows (W=8, W=16)
+    assert route(19, 16, 16) == route(138, 32, 4) == route(223, 32, 4) == "merge"
+    # lanes past the network: LCS (C ~ 28k), TSPTW N60 at width 256,
+    # SOP-380 at width 256 in one lane, golomb-12, the device loop's slab
+    for nk, C, L in [(40, 4096, 1), (2, 28_000, 1), (11, 15_616, 128), (4, 15_616, 128),
+                     (39, 97_280, 1), (128, 1000, 1), (9, 2048, 1), (4, 8192, 1),
+                     (138, 512, 128)]:
+        assert route(nk, C, L) == "merge"
+    with pytest.raises(ValueError, match="512 operands"):
+        route(513, 8)
     assert route(2, tsort.MERGE_MAX_ROWS) == "merge"
     with pytest.raises(ValueError, match="merge route"):
         route(2, tsort.MERGE_MAX_ROWS + 1)
+
+
+@pytest.mark.parametrize("L,C,nk,plan", [
+    # (prefix words, tile rows, window rows, passes, tile / pass / gather
+    # smem bytes)
+    (128, 15_616, 11, (11, 4096, 4096, 2, 196_608, 204_808, 62_464)),  # TSPTW N60 sort-1
+    (128, 15_616, 4, (4, 8192, 4096, 1, 163_840, 90_120, 62_464)),     # TSPTW N60 sort-2
+    (1, 97_280, 39, (12, 2048, 256, 6, 106_496, 13_832, 0)),          # SOP-380: no staging
+    (16, 3840, 67, (12, 2048, 256, 1, 106_496, 13_832, 15_360)),      # SRFLP-60
+    (128, 5376, 13, (12, 4096, 2048, 1, 212_992, 110_600, 21_504)),   # LCS 10 x 20
+    (1, 8192, 4, (4, 2048, 256, 2, 40_960, 5_640, 32_768)),           # the slab's pop sort
+    (8, 50_000, 11, (11, 4096, 1024, 4, 196_608, 51_208, 200_000)),
+    (128, 4096, 11, (11, 4096, 1024, 0, 196_608, 0, 0)),             # one tile
+    (128, 4097, 11, (11, 4096, 2048, 1, 196_608, 102_408, 16_388)),   # a tile of one row
+    (8, 2049, 11, (11, 2048, 256, 1, 98_304, 12_808, 8_196)),         # a window of one row
+    (8, 1, 3, (3, 256, 256, 0, 4_096, 0, 0)),
+    (8, 1, 1, (1, 256, 256, 0, 3_072, 0, 0)),                         # a head of (key, position)
+    (16, 16, 141, (12, 256, 256, 0, 13_312, 0, 0)),                   # past 12 keys
+])
+def test_merge_plan(L, C, nk, plan):
+    """The "merge" route's plan per (lanes, rows, keys): tiles and windows
+    are powers of two within one block's shared memory, a window never
+    exceeds a tile, the passes double the run length from a tile to the
+    lane, and a gather pass stages one operand's lane when it fits a
+    block."""
+    got = tsort.merge_plan(L, C, nk)
+    assert tuple(got) == plan
+    P, T, S, passes, tile_smem, pass_smem, gather_smem = got
+    assert P == min(nk, tsort.PREFIX_WORDS)
+    assert tsort.MERGE_MIN_ROWS <= S <= T <= tsort.MERGE_MAX_TILE
+    assert T & (T - 1) == 0 and S & (S - 1) == 0
+    assert T * 2 ** passes >= C > (T * 2 ** (passes - 1) if passes else 0)
+    # a 64-bit head of two record words per row, the other words, index
+    # buffers (two per tile, one per window), and a window's two splits
+    assert tile_smem == T * (8 + 4 * max(P - 2, 0) + 2 * 2) <= tsort.cuda_build.SMEM_PER_BLOCK
+    if passes:
+        assert pass_smem == S * (8 + 4 * (P - 1) + 2) + 8 <= tsort.cuda_build.SMEM_PER_BLOCK
+    assert gather_smem in (0, 4 * C) and gather_smem <= tsort.cuda_build.SMEM_PER_BLOCK
+    assert bool(gather_smem) == (passes > 0 and 4 * C <= tsort.cuda_build.SMEM_PER_BLOCK)
 
 
 def test_lane_sort_wrapper_refusals():
@@ -242,11 +289,75 @@ def test_lane_sort_wrapper_refusals():
         tsort.multi_sort_cuda([op] * 10, 9, route="regs")
     with pytest.raises(ValueError, match="route"):
         tsort.multi_sort_cuda([op], 1, route="radix")
-    with pytest.raises(ValueError, match="route"):  # keys past shared memory
-        tsort.multi_sort_cuda([torch.zeros((1, 28_000), dtype=torch.int32)] * 2, 2,
+    with pytest.raises(ValueError, match="route"):  # past the network's rows
+        tsort.multi_sort_cuda([torch.zeros((1, 2048), dtype=torch.int32)] * 9, 9,
+                              route="perm")
+    with pytest.raises(ValueError, match="route"):  # staged keys past shared memory
+        tsort.multi_sort_cuda([torch.zeros((1, 1000), dtype=torch.int32)] * 128, 128,
                               route="perm")
     with pytest.raises(ValueError, match="CUDA device"):
         tsort.multi_sort_cuda([op] * tsort.MAX_OPERANDS, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,C,nk,npay,route", [
+    (3, 100, 4, 125, "regs"),    # 129 operands, few keys
+    (3, 100, 4, 125, "merge"),
+    (16, 16, 138, 3, "perm"),    # max2sat at 135 variables, W=8: 141 operands
+    (16, 16, 138, 3, "merge"),
+    (16, 16, 223, 3, "perm"),    # max2sat at 220 variables: 226 operands
+    (4, 512, 223, 3, "merge"),
+    (2, 700, 500, 12, "merge"),  # the cap: 512 operands
+    (2, 64, 500, 12, "perm"),
+])
+def test_lane_sort_many_operands_on_card(L, C, nk, npay, route):
+    """Past the 128 operands of the small parameter struct, on each route
+    that takes the shape: bit-equal to the plain version."""
+    _card()
+    ops = [torch.from_numpy(o).cuda() for o in sort_operands(L, C, nk, npay, 50 + nk)]
+    ref = tsort.multi_sort_plain(ops, nk)
+    for r, g in zip(ref, _sorted_on_card(ops, nk, route)):
+        assert torch.equal(r, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,C,nk,route", [
+    (4, 300, 16, "perm"), (4, 1000, 16, "perm"), (16, 16, 138, "perm"),
+    (4, 300, 16, "merge"), (8, 5000, 16, "merge"), (4, 3000, 40, "merge"),
+])
+def test_lane_sort_prefix_ties_on_card(L, C, nk, route):
+    """Keys that tie on the PREFIX_WORDS words a record carries (each from
+    {0, 1}) and differ only later: the staged or re-read key words settle
+    them, and the position settles the rest, so every operand, payloads
+    included, equals the stable plain version's."""
+    _card()
+    rng = np.random.default_rng(C + nk)
+    keys = [rng.integers(0, 2, (L, C)) for _ in range(tsort.PREFIX_WORDS)]
+    keys += [rng.integers(-3, 3, (L, C)) for _ in range(nk - tsort.PREFIX_WORDS)]
+    ops = [torch.from_numpy(o.astype(np.int32)).cuda()
+           for o in keys + [rng.integers(0, 1 << 20, (L, C)) for _ in range(2)]]
+    ref = tsort.multi_sort_plain(ops, nk)
+    for r, g in zip(ref, _sorted_on_card(ops, nk, route)):
+        assert torch.equal(r, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,C,nk", [
+    (128, 4096, 11), (128, 4097, 11),  # one tile; a second tile of one row
+    (128, 8193, 4),                    # tiles of 8,192 rows
+    (8, 2049, 11),                     # windows of 256 rows, one of one row
+    (2, 2048 * 3 + 1, 2),              # tiles of 2,048, two passes
+    (1, 97_280, 39),                   # SOP-380: six passes, no staged gather
+    (1, 60_000, 3),                    # a lane past a staged gather
+])
+def test_lane_sort_merge_tile_boundaries_on_card(L, C, nk):
+    """The "merge" route at its plan's tile and window boundaries (see
+    test_merge_plan), bit-equal to the plain version."""
+    _card()
+    ops = [torch.from_numpy(o).cuda() for o in sort_operands(L, C, nk, 3, 70 + nk)]
+    ref = tsort.multi_sort_plain(ops, nk)
+    for r, g in zip(ref, _sorted_on_card(ops, nk, "merge")):
+        assert torch.equal(r, g)
 
 
 @pytest.mark.cuda

@@ -348,7 +348,8 @@ def test_counts_match_ddo_tpu_at_batch_1(name):
 
 def test_too_many_sort_operands_raises_at_construction():
     """A model whose sorts are beyond the lane sort kernel (more operands
-    than one call takes) is refused when a compiler is built for a card:
+    than one call takes, MAX_OPERANDS = 512) is refused when a compiler is
+    built for a card:
     never a silent fall back to the plain version there.  The check needs
     no card, and the CPU route, whose plain sort has no such limit, takes
     the same models.  Lanes too long for one block's shared memory are no
@@ -356,9 +357,11 @@ def test_too_many_sort_operands_raises_at_construction():
     from ddo_tpu_torch.engine.mdd import _check_sort_operands
     from ddo_tpu_torch.ops import sort as srt
 
-    pb = tmi.Misp(64 * 32, [])  # 64 state words: 64 keys, 65 ranking columns, the long-arc flag
+    # 256 state words: 259 keys, 257 ranking columns, the long-arc flag
+    pb = tmi.Misp(256 * 32, [])
     bundle = tp.ModelBundle(pb, tmi.MispRelax(pb), tmi.MispRanking(pb))
-    with pytest.raises(ValueError, match="135 sort operands"):
+    assert srt.MAX_OPERANDS == 512
+    with pytest.raises(ValueError, match="519 sort operands"):
         _check_sort_operands(bundle, None, 8)
     tt.DDCompiler(bundle, 8, device="cpu")
     # golomb's domain is wide: 12 marks give 73 values and 14 key words,

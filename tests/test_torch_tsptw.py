@@ -386,11 +386,12 @@ def test_tsptw_generator_and_scale():
 def test_sort_operands_accept_full_width():
     """At 61 nodes (2-word bitsets, 8 state words: Langevin's N60 class) and
     width 256 both sorts take K1's "merge" route, which a compiler built
-    for a card accepts; so does the N20 class at width 256, whose sort-1
-    takes "merge" and sort-2 "perm"."""
+    for a card accepts; so does the N20 class at width 256, whose two
+    sorts (5,376 rows) also take "merge": the register networks end at
+    2,048 rows."""
     from ddo_tpu_torch.ops import sort as srt
 
-    for n, nk1, route2 in [(61, 11, "merge"), (21, 8, "perm")]:
+    for n, nk1, route2 in [(61, 11, "merge"), (21, 8, "merge")]:
         pb = tts.generate_random(n, 0)
         bundle = tp.ModelBundle(pb, tts.TsptwRelax(pb), tts.TsptwRanking())
         _check_sort_operands(bundle, tts.TsptwDominance(), 256)
