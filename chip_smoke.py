@@ -24,12 +24,15 @@ Phases, each printing its own line(s):
      and differ later; "merge" at 1 row, at 1,023 to 1,025 rows, at its
      tile and window boundaries, at 50,000 rows, and with every key in
      {0, 1}, where the payloads too must be the stable plain version's; K2
-     with fewer layers than a ring block, and on its direct route at
-     W=1100 and W=4096), each with its time, the plain version's, the
-     least time the card could take (`bound_ms`, bytes or operations, one
-     yardstick for every K1 route) and the share of it reached; every K1
-     route that takes a case is checked and timed, in turns, and the
-     knapsack sorts' and one 141-operand call's host time per call;
+     also at TSPTW N60's D=61 in 4 lanes, SOP with 380 jobs in one lane
+     and SRFLP n=60 in 16 lanes at W=256, with fewer layers than a ring
+     block, at W=1100 (no bulk copy) and at W=4096), each with its time,
+     the plain version's, the least time the card could take
+     (`bound_ms`, bytes or operations, one yardstick for every route) and
+     the share of it reached; every route of either kernel that takes a
+     case is checked and timed, in turns (K2's "stream" also at one CTA
+     per lane where its plan takes a cluster), and the knapsack sorts' and
+     one 141-operand call's host time per call;
   3. the main path at real size: a seeded uncorrelated knapsack with
      n=2000 (Pisinger's knapPI_1 family), a restricted and a relaxed
      compile of 128 root lanes at W=256 bracketing the exact DP optimum,
@@ -66,9 +69,9 @@ Phases, each printing its own line(s):
      compile of 128 root lanes at W=256 with the dominance filter (no
      coordinate columns), each followed by the solver's compact
      extraction: both sorts of every layer on K1's "merge" route, the
-     relaxed bound over the restricted value on every lane, a restricted
-     tour replayed within every window at its value, the batch's cutset
-     rows, launches and times;
+     sweep on K2's "stream" route, the relaxed bound over the restricted
+     value on every lane, a restricted tour replayed within every window
+     at its value, the batch's cutset rows, launches and times;
  10. `maximize` on a seeded 21-node instance (the N20 class) at W=256 to
      gap 0 and to an exact DP over (visited set, last node) labels;
  11. for each of sop, srflp, lcs, psp and alp: a compile of 3 or 4 lanes
@@ -106,14 +109,15 @@ knapsack (phases 3-4), MISP (6-7), max2sat and max-cut (8, one count
 each), TSPTW (9-10), sop, srflp, lcs, psp and alp (11, one count each),
 device_loop (13: the device loop's own runs, each zeroed just before it
 and read just after), native (14), cli (15) and wide (16); both kernels
-must have launched in each, and K1's count is also kept by route.  Phases
-5 and 12 are in no count.
+must have launched in each, and each kernel's count is also kept by
+route.  Phases 5 and 12 are in no count.
 
     python3 chip_smoke.py --parent DIR
 
-also times, in phase 2, the K1 of another checkout at DIR (a parent
-commit unpacked with `git archive`), on the route it would choose, in
-turns with this checkout's routes, and the host's time per call of both.
+also times, in phase 2, the K1 and K2 of another checkout at DIR (a
+parent commit unpacked with `git archive`), on the route each would
+choose, in turns with this checkout's routes, and K1's host time per
+call of both.
 """
 
 import dataclasses
@@ -359,11 +363,13 @@ def host_us(torch, fn, reps=200):
     return 1e6 * t / reps
 
 
-def tree_sort(root):
-    """The K1 wrapper (`ddo_tpu_torch/ops/sort.py`) of another checkout at
-    `root`, e.g. a parent commit unpacked with `git archive`, built from
-    that checkout's own `csrc/lane_sort.cu` into its own `build/`, beside
-    this checkout's, so that phase 2 can time both in turns."""
+def tree_kernels(root):
+    """The K1 and K2 wrappers (`ddo_tpu_torch/ops/sort.py`,
+    `ddo_tpu_torch/engine/backward.py`) of another checkout at `root`,
+    e.g. a parent commit unpacked with `git archive`, built from that
+    checkout's own `csrc/` into its own `build/` (one nvcc per source,
+    started together), beside this checkout's, so that phase 2 can time
+    both in turns."""
     import importlib.util
     import os
 
@@ -375,18 +381,29 @@ def tree_sort(root):
 
     cb = load("parent_cuda_build", "ddo_tpu_torch/utils/cuda_build.py")
     srt = load("parent_sort", "ddo_tpu_torch/ops/sort.py")
-    srt.cuda_build = cb
-    cb.build("lane_sort")
-    return srt
+    bwd = load("parent_backward", "ddo_tpu_torch/engine/backward.py")
+    srt.cuda_build = bwd.cuda_build = cb
+    cb.build("lane_sort", "backward")
+    return srt, bwd
+
+
+def parent_backward_route(parent_bwd, K, W, D):
+    """The route the parent's K2 takes at a shape: its `backward_plan`
+    took (W, D) and returned (layers per block, layout) before the
+    "stream" route, 0 layers meaning "direct"."""
+    try:
+        return parent_bwd.backward_plan(K, W, D).route
+    except TypeError:
+        return "tma" if parent_bwd.backward_plan(W, D)[0] else "direct"
 
 
 def phase_kernels(torch, dev, extra_k1=(), parent=None):
     """Phase 2: K1 and K2 against their plain versions on the card (K1
-    also at the `extra_k1` cases, the small models' sorts).  Every K1
-    route that takes a case is checked and timed, in turns (and, given
-    `parent`, another checkout's K1 wrapper from `tree_sort`, on the route
-    it would choose, first and last).  Returns {(kernel, case): row}, each
-    row the case's JSON line."""
+    also at the `extra_k1` cases, the small models' sorts).  Every route
+    of either kernel that takes a case is checked and timed, in turns
+    (and, given `parent`, another checkout's K1 and K2 wrappers from
+    `tree_kernels`, on the route each would choose, first and last).
+    Returns {(kernel, case): row}, each row the case's JSON line."""
     from ddo_tpu_torch.engine import backward as bwd
     from ddo_tpu_torch.ops import sort as srt
 
@@ -412,9 +429,9 @@ def phase_kernels(torch, dev, extra_k1=(), parent=None):
             if err or not all(torch.equal(r, g) for r, g in zip(ref, got)):
                 raise AssertionError(f"K1 {label} ({r_}) disagrees with its plain version")
         calls = {r_: (lambda r_=r_: srt.multi_sort_cuda(ops, nk, route=r_)) for r_ in routes}
-        if parent is not None and nk + npay <= parent.MAX_OPERANDS:
-            parent_route = parent.lane_sort_route(nk, C)
-            calls = {"parent": lambda: parent.multi_sort_cuda(ops, nk, route=parent_route),
+        if parent is not None and nk + npay <= parent[0].MAX_OPERANDS:
+            parent_route = parent[0].lane_sort_route(nk, C)
+            calls = {"parent": lambda: parent[0].multi_sort_cuda(ops, nk, route=parent_route),
                      **calls}
         # in turns (a, b, ..., b, a), so that all come from one card
         ms = {k: [] for k in calls}
@@ -445,48 +462,90 @@ def phase_kernels(torch, dev, extra_k1=(), parent=None):
         rows[("lane_sort", label)] = row
         log(json.dumps(row))
         del ops, ref, got
-    # K2: the main path's sweeps, then fewer layers than a ring block, and
-    # the direct route (W not a multiple of 16; W too large for the ring)
-    for label, K, n, W, D, reps in [("main", K_LANES, N_ITEMS, WIDTH, 2, 10),
-                                    ("one_lane", 1, N_ITEMS, WIDTH, 2, 10),
-                                    ("misp", K_LANES, MISP_N, WIDTH, 2, 20),
-                                    ("small", SMALL_BATCH, SMALL_N, SMALL_W, 2, 50),
-                                    # the TSPTW compile's sweep: D = 61
-                                    ("tsptw", K_LANES, TSPTW_N, WIDTH, TSPTW_N, 5),
-                                    # the small models' maximize sweeps
-                                    ("small_models", SMALL_MODELS_BATCH, 8,
-                                     SMALL_MODELS_W, 9, 50),
-                                    # the device loop's, NativeSolver's and
-                                    # the CLI's sweeps
-                                    ("dl_misp60", K_LANES, DL_N, WIDTH, 2, 20),
-                                    ("native_kp", NATIVE_BATCH, NATIVE_KP[0],
-                                     NATIVE_W, 2, 50),
-                                    ("cli_kp", CLI_BATCH, CLI_KP[0], CLI_W, 2, 50),
-                                    # phase 16's max2sat at 135 variables, W=256
-                                    ("wide_max2sat", 4, WIDE_N, WIDTH, 2, 20),
-                                    ("layers_3", K_LANES, 3, WIDTH, 2, 50),
-                                    ("width_1100", 8, 50, 1100, 3, 20),
-                                    ("direct", 4, 50, 4096, 2, 20)]:
-        args = backward_case(torch, gen, K, n, W, D, dev)
-        ref = bwd.backward_scans(*args)
-        got = bwd.fused_backward_cuda(*args)
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, ref, got)
-        if err or not all(torch.equal(r, g) for r, g in zip(ref, got)):
-            raise AssertionError(f"K2 {label} disagrees with its plain version")
-        ms = time_ms(torch, lambda: bwd.fused_backward_cuda(*args), reps)
-        plain_ms = time_ms(torch, lambda: bwd.backward_scans(*args), 2)
-        b_ms, b_by = backward_bound(K, n, W, D)
-        block = bwd.backward_plan(W, D)[0]
-        row = {"phase": "kernel", "kernel": "fused_backward", "case": label,
-               "route": "tma" if block else "direct", "block_layers": block,
-               "shape": [K, n, W, D],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "share_of_bound": b_ms / ms}
-        rows[("fused_backward", label)] = row
-        log(json.dumps(row))
-        del args, ref, got
+    for label, K, n, W, D, reps in K2_CASES:
+        rows[("fused_backward", label)] = backward_row(torch, gen, dev, bwd, label, K, n, W, D,
+                                                        reps, parent)
     return rows
+
+
+# K2's cases: (label, lanes, layers, W, D, timed calls).  The main paths'
+# sweeps, fewer layers than a ring block, the high-branching models at
+# real width, and the widths no bulk copy takes or that pass two layers.
+K2_CASES = [
+    ("main", K_LANES, N_ITEMS, WIDTH, 2, 10),
+    ("one_lane", 1, N_ITEMS, WIDTH, 2, 10),
+    ("misp", K_LANES, MISP_N, WIDTH, 2, 20),
+    ("small", SMALL_BATCH, SMALL_N, SMALL_W, 2, 50),
+    # the TSPTW compile's sweep: D = 61, and the same at four lanes
+    ("tsptw", K_LANES, TSPTW_N, WIDTH, TSPTW_N, 10),
+    ("tsptw_4lanes", 4, TSPTW_N, WIDTH, TSPTW_N, 20),
+    # SOP with 380 jobs in one lane, SRFLP n=60 at 16 lanes (K1's rows
+    # 1f and 1g), W=256
+    ("sop380", 1, 380, WIDTH, 380, 5),
+    ("srflp60", 16, 60, WIDTH, 60, 20),
+    # the small models' maximize sweeps
+    ("small_models", SMALL_MODELS_BATCH, 8, SMALL_MODELS_W, 9, 50),
+    # the device loop's, NativeSolver's and the CLI's sweeps
+    ("dl_misp60", K_LANES, DL_N, WIDTH, 2, 20),
+    ("native_kp", NATIVE_BATCH, NATIVE_KP[0], NATIVE_W, 2, 50),
+    ("cli_kp", CLI_BATCH, CLI_KP[0], CLI_W, 2, 50),
+    # phase 16's max2sat at 135 variables, W=256
+    ("wide_max2sat", 4, WIDE_N, WIDTH, 2, 20),
+    ("layers_3", K_LANES, 3, WIDTH, 2, 50),
+    ("width_1100", 8, 50, 1100, 3, 20),
+    ("direct", 4, 50, 4096, 2, 20),
+]
+
+
+def backward_row(torch, gen, dev, bwd, label, K, n, W, D, reps, parent):
+    """One K2 case: every route that takes it ("tma" where two layers fit,
+    "stream" where rows are 16-byte multiples, and at one CTA per lane too
+    where its plan spreads a lane over a cluster, "direct" always) held
+    bit-equal to `backward_scans` and timed in turns (a, b, ..., b, a),
+    the parent's K2 first and last; the plan's route first."""
+    args = backward_case(torch, gen, K, n, W, D, dev)
+    ref = bwd.backward_scans(*args)
+    plan = bwd.backward_plan(K, W, D)
+    forced = {plan.route: {}}
+    for r in bwd.ROUTES:
+        try:
+            other = bwd.backward_plan(K, W, D, r)
+        except ValueError:
+            continue
+        forced.setdefault(r, {"route": r})
+        if r == "stream" and other.cluster > 1:
+            forced["stream_c1"] = {"route": "stream", "cluster": 1}
+    err = 0
+    for name, kw in forced.items():
+        got = bwd.fused_backward_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(torch, ref, got))
+        if err or not all(torch.equal(r, g) for r, g in zip(ref, got)):
+            raise AssertionError(f"K2 {label} ({name}) disagrees with its plain version")
+    calls = {name: (lambda kw=kw: bwd.fused_backward_cuda(*args, **kw))
+             for name, kw in forced.items()}
+    if parent is not None:
+        calls = {"parent": lambda: parent[1].fused_backward_cuda(*args), **calls}
+    ms = {k: [] for k in calls}
+    for k in list(calls) + list(calls)[::-1]:
+        ms[k].append(time_ms(torch, calls[k], reps))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    plain_ms = time_ms(torch, lambda: bwd.backward_scans(*args), 2)
+    b_ms, b_by = backward_bound(K, n, W, D)
+    row = {"phase": "kernel", "kernel": "fused_backward", "case": label, "route": plan.route,
+           "cluster": plan.cluster, "block": plan.block, "depth": plan.depth,
+           "group": plan.group, "threads": plan.threads, "shape": [K, n, W, D],
+           "max_abs_err": err, "ms": mean[plan.route], "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / mean[plan.route]}
+    for k in forced:
+        if k != plan.route:
+            row[f"{k}_route_ms"] = mean[k]
+    if parent is not None:
+        row.update(parent_route=parent_backward_route(parent[1], K, W, D),
+                   parent_ms=mean["parent"], parent_ms_turns=ms["parent"],
+                   ms_turns=ms[plan.route])
+    log(json.dumps(row))
+    return row
 
 
 def phase_compile(torch, dev, n=N_ITEMS, K=K_LANES, W=WIDTH):
@@ -1048,7 +1107,8 @@ def phase_tsptw_compile(torch, dev, rows, K=K_LANES, W=WIDTH, n=TSPTW_N):
     for label, comp in [("restricted", tt.CompilationType.RESTRICTED),
                         ("relaxed", tt.CompilationType.RELAXED)]:
         relaxed = label == "relaxed"
-        before = (srt.KERNEL_LAUNCHES, dict(srt.ROUTE_LAUNCHES), bwd.KERNEL_LAUNCHES)
+        before = (srt.KERNEL_LAUNCHES, dict(srt.ROUTE_LAUNCHES), bwd.KERNEL_LAUNCHES,
+                  dict(bwd.ROUTE_LAUNCHES))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1059,6 +1119,9 @@ def phase_tsptw_compile(torch, dev, rows, K=K_LANES, W=WIDTH, n=TSPTW_N):
         k1 = {r: srt.ROUTE_LAUNCHES[r] - before[1][r] for r in srt.ROUTE_LAUNCHES}
         if k1["merge"] != 2 * n or srt.KERNEL_LAUNCHES - before[0] != 2 * n:
             raise AssertionError(f"{label}: K1 did not sort every layer on its merge route: {k1}")
+        k2 = {r: bwd.ROUTE_LAUNCHES[r] - before[3][r] for r in bwd.ROUTE_LAUNCHES}
+        if k2 != {**{r: 0 for r in k2}, "stream": 1}:
+            raise AssertionError(f"{label}: K2 did not sweep once on its stream route: {k2}")
         t0 = time.perf_counter()
         ex = solver._extract_batch(batch, want_cutset=relaxed)
         if relaxed:
@@ -1085,6 +1148,7 @@ def phase_tsptw_compile(torch, dev, rows, K=K_LANES, W=WIDTH, n=TSPTW_N):
             "lane_sort_launches": srt.KERNEL_LAUNCHES - before[0], "lane_sort_routes": k1,
             "lane_sort_ms_per_layer": k1_ms,
             "fused_backward_launches": bwd.KERNEL_LAUNCHES - before[2],
+            "fused_backward_routes": k2,
             "fused_backward_ms": rows[("fused_backward", "tsptw")]["ms"],
             "fused_backward_route": rows[("fused_backward", "tsptw")]["route"],
             "cache_rows": ex.get("cache", {}).get("count", 0),
@@ -1368,8 +1432,9 @@ def phase_device_loop(torch, dev, reset, read, n=DL_N, shapes=DL_SHAPES,
         if kind == "device_loop" and torch.device(device).type == "cuda":
             for k in mine:
                 mine[k] += got[k]
-            for r, c in by_route.items():
-                routes[r] = routes.get(r, 0) + c
+            for kern, by in by_route.items():
+                for r, c in by.items():
+                    routes.setdefault(kern, {})[r] = routes.get(kern, {}).get(r, 0) + c
         return s, done, wall, got
 
     for W, batch in shapes:
@@ -1406,8 +1471,9 @@ def phase_device_loop(torch, dev, reset, read, n=DL_N, shapes=DL_SHAPES,
         if torch.device(device).type == "cuda":
             for k in mine:
                 mine[k] += got[k]
-            for r, c in by_route.items():
-                routes[r] = routes.get(r, 0) + c
+            for kern, by in by_route.items():
+                for r, c in by.items():
+                    routes.setdefault(kern, {})[r] = routes.get(kern, {}).get(r, 0) + c
         counts[str(device)] = solver_counts(s)
     cpu, card = counts["cpu"], counts[str(dev)]
     ev = card["loop_events"]
@@ -1531,7 +1597,7 @@ def main(argv):
     ap = argparse.ArgumentParser(description="Drives ddo_tpu_torch once on a GPU.")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout (a parent commit unpacked with git archive) "
-                         "whose K1 phase 2 times in turns beside this one's")
+                         "whose K1 and K2 phase 2 times in turns beside this one's")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1557,6 +1623,15 @@ def main(argv):
     for name in ("lane_sort", "backward"):
         log(json.dumps({"phase": "ptxas", "source": f"ddo_tpu_torch/csrc/{name}.cu",
                         "kernels": ptxas_summary(cuda_build.ptxas_report(name))}))
+    # K2's planner keeps a lane's cluster count within what the card holds
+    # at once: its table may not exceed the card's own count at the most
+    # shared memory a "stream" CTA takes
+    held = {c: bwd.resident_clusters(c, cuda_build.SMEM_PER_BLOCK, 32 * bwd.STREAM_WARPS)
+            for c in bwd.CLUSTERS_RESIDENT}
+    log(json.dumps({"phase": "clusters", "smem": cuda_build.SMEM_PER_BLOCK, "card": held,
+                    "planner": bwd.CLUSTERS_RESIDENT}))
+    if any(held[c] < n for c, n in bwd.CLUSTERS_RESIDENT.items()):
+        raise AssertionError(f"the card holds fewer clusters than K2's planner assumes: {held}")
 
     # ---- 2. kernels against their plain versions
     import ddo_tpu_torch as tt
@@ -1574,7 +1649,7 @@ def main(argv):
         pb = kp.generate_uncorrelated(*args[:4], seed=args[4])
         extra.append(model_sort_case(name, tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()),
                                      kp.KPDominance(), W=W, L=L))
-    parent = tree_sort(opts.parent) if opts.parent else None
+    parent = tree_kernels(opts.parent) if opts.parent else None
     rows = phase_kernels(torch, dev, extra, parent)
 
     # ---- 3-11. each path with its own launch counts: zeroed just before
@@ -1585,10 +1660,12 @@ def main(argv):
         srt.KERNEL_LAUNCHES = 0
         srt.ROUTE_LAUNCHES.update({r: 0 for r in srt.ROUTE_LAUNCHES})
         bwd.KERNEL_LAUNCHES = 0
+        bwd.ROUTE_LAUNCHES.update({r: 0 for r in bwd.ROUTE_LAUNCHES})
 
     def read():
         return ({"lane_sort": srt.KERNEL_LAUNCHES, "fused_backward": bwd.KERNEL_LAUNCHES},
-                dict(srt.ROUTE_LAUNCHES))
+                {"lane_sort": dict(srt.ROUTE_LAUNCHES),
+                 "fused_backward": dict(bwd.ROUTE_LAUNCHES)})
 
     def counted(path, drive):
         """Drive one path between a reset and a read of the counts; a
@@ -1598,7 +1675,7 @@ def main(argv):
         own = drive()
         launches[path], routes = own if own else read()
         log(json.dumps({"phase": "launches", "path": path, **launches[path],
-                        "lane_sort_routes": routes, "seconds": time.perf_counter() - t0}))
+                        "routes": routes, "seconds": time.perf_counter() - t0}))
         if not all(launches[path].values()):
             raise AssertionError(f"a kernel of the {path} path never launched: "
                                  f"{launches[path]}")

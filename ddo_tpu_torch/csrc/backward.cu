@@ -7,34 +7,47 @@
 // clean.rs:448-475) and the thresholds (clean.rs:478-532) of every node:
 // the semantics of `_layer_body` (backward.py:58-115), rule for rule.
 //
-// Design: one CTA per lane, one thread per node slot (a strided loop when
-// W exceeds the block).  The layer loop runs inside the kernel, from n-1
-// down to 0.  The child layer's effective carries (vb_eff, th_eff: two
-// int32 [W] rows) live in shared memory, double-buffered, so each layer
-// costs one __syncthreads.  Each thread reduces its node's D out-edges
-// with native indexed loads of the child carries; no one-hot products and
-// no 12-bit splits, which the TPU needed to gather.
-//
 // What bounds it: each layer needs layer l+1's carries, so the n layers
 // run in series, but a layer's inputs (11 planes, 9*W*D + 20*W bytes) do
-// not depend on them, so the "tma" route fetches them ahead.  One SM
-// streams at (bytes in flight) / (memory latency), and the Tensor Memory
-// Accelerator keeps few copies in flight, so a layer's 11 rows (256 B -
-// 2 KB each at W=256) are too small to stream: the ring
-// holds blocks of B consecutive layers (B = 8 at W=256, D=2), which are
-// contiguous in every plane, so a block is 11 bulk copies of up to 16 KB.
-// One block loads while the block before it computes; thread 0 issues
-// the copies and the threads wait on the slot's mbarrier.  A bulk copy
-// needs 16-byte aligned rows that are a multiple of 16 bytes, so the
-// route takes W % 16 == 0 and aligned planes (the solver's W is a power of
-// two >= 8); any other W, and a W too large for two blocks of one layer,
-// takes the "direct" route: the same sweep reading each layer's inputs
-// from device memory as it computes it (the earlier design).  At K=128,
-// n=2000, W=256, D=2 the sweep must read 2,516,582,400 B and write
-// 655,360,000 B (0.94 ms at 3.35 TB/s); 128 CTAs fill 128 of the H100's
-// 132 SMs.  With one lane the bound is the layer chain itself: dependent
-// shared-memory loads, integer selects and one barrier per layer.  Tensor
-// cores have nothing to offer integer max/min/select work.
+// not depend on them and can be fetched ahead.  One SM streams at (bytes
+// in flight) / (memory latency), so the routes differ in how many bytes
+// they keep in flight and how many SMs one lane uses.  Tensor cores have
+// nothing to offer this integer max/min/select work.  Three routes,
+// chosen by engine/backward.py `backward_plan`:
+//
+// "direct" (the first design; W % 16 != 0 or planes off 16-byte
+// boundaries, which no bulk copy takes): one CTA per lane, one thread
+// per node slot, the layer loop inside the kernel, the child layer's
+// carries (vb_eff, th_eff: two int32 [W] rows) double-buffered in shared
+// memory, one __syncthreads per layer.  Each thread reduces its node's D
+// out-edges with native indexed loads straight from device memory.
+//
+// "tma" (low branching: two blocks of one layer fit shared memory): the
+// same sweep, with the ring holding blocks of B consecutive layers (B = 8
+// at W=256, D=2), contiguous in every plane, so a block is 11 bulk copies
+// by the Tensor Memory Accelerator of up to 16 KB.  One block loads while
+// the block before it computes.  At K=128, n=2000, W=256, D=2 the sweep
+// must read 2,516,582,400 B and write 655,360,000 B (0.94 ms at 3.35
+// TB/s); 128 CTAs fill 128 of the H100's 132 SMs.
+//
+// "stream" (high branching, or very wide layers): a ring of R sub-layer
+// chunks of S node slots (their S*D edges and S entries of each node
+// plane: 11 bulk copies on one mbarrier), refilled by whichever warp
+// finishes a chunk last, so chunks of the next layers arrive while this
+// one computes.  A chunk's edges are read one per lane, consecutive lanes
+// on consecutive edges (conflict-free in shared memory at any D), and
+// each node's D contributions are reduced over a group of G lanes (a
+// warp when D > 16, by a reduce-scatter over its nodes); then each lane
+// applies the node rules to one node.  At TSPTW N60's shape, 128 lanes x
+// 61 layers x W=256 x D=61, the sweep reads 1,137 MB (0.35 ms at 3.35
+// TB/s) in chunks of 128 slots, 3 in the ring.  With few lanes, a
+// thread-block cluster of c CTAs takes one lane: each CTA streams W/c
+// slots and holds a full copy of the carries; at a layer's end it copies
+// its slice of the new carries into every peer's shared memory with bulk
+// copies (cp.async.bulk shared::cta -> shared::cluster) that complete on
+// the peer's mbarrier, so the layer chain runs on c SMs with no
+// cluster-wide barrier inside it.  That exchange sits on every layer's
+// critical path and bounds a clustered lane (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,10 +84,11 @@ struct LayerRows {
   const uint8_t *valid, *cutflag, *exact, *mask, *wlp;
 };
 
-// A ring slot holds a block of B consecutive layers of the 11 input
-// planes: the byte offset of each plane's B rows in the slot, in
-// LayerRows order (child, cost, val, rub, ep, wlth, valid, cutflag, exact,
-// mask, wlp), then the slot's size (engine/backward.py `backward_plan`).
+// A ring slot holds a block of B consecutive layers ("tma") or a chunk of
+// S node slots of one layer ("stream") of the 11 input planes: the byte
+// offset of each plane's rows in the slot, in LayerRows order (child,
+// cost, val, rub, ep, wlth, valid, cutflag, exact, mask, wlp), then the
+// slot's size (engine/backward.py `backward_plan`).
 #define RING_ROWS 11
 struct Ring {
   int off[RING_ROWS];
@@ -89,6 +103,58 @@ __device__ __forceinline__ int sat_add(int a, int b) {
 }
 __device__ __forceinline__ int sat_sub(int a, int b) {
   return sat((int)((unsigned)a - (unsigned)b));
+}
+
+// A node's rules after its out-edges are reduced (vb_l, mk: local bound;
+// th_l, hs: child thresholds): thetas of filter-pruned children, the
+// threshold rules, within-layer dominance.  Writes the node's four outputs
+// at i and returns its carries for the parent layer in vbe, the.
+__device__ __forceinline__ void finish_node(const BwdArgs& a, size_t i, int vb_l, int th_l,
+                                            bool mk, bool hs, int ep, int val, int rub, int wlth,
+                                            bool alive, bool cutf, bool ex, bool wlp, int bk,
+                                            int& vbe, int& the) {
+  // theta of filter-pruned children that never materialized
+  th_l = min(th_l, ep);
+  hs = hs || ep < INF_;
+  if (!hs) th_l = INF_;
+
+  // thresh_rules (backward.py:42-55, clean.rs:503-517)
+  const bool b1 = sat_add(val, rub) <= bk;
+  const int th1 = sat_sub(bk, rub);
+  const int th2a = min(hs ? th_l : INF_, sat_sub(bk, vb_l));
+  const int th2 = sat_add(val, vb_l) <= bk ? th2a : val;
+  const bool b3 = ex && !hs;
+  const int new_th = b1 ? th1 : (cutf ? th2 : (b3 ? INF_ : th_l));
+  const bool new_hs = hs || b1 || cutf || b3;
+  if (alive) {
+    th_l = new_th;
+    hs = new_hs;
+  }
+  // within-layer dominance: a pruned row's theta is its threshold
+  const bool use_wl = wlp && wlth < INF_;
+  if (use_wl) th_l = wlth;
+  hs = hs || use_wl;
+
+  a.vb_out[i] = vb_l;
+  a.mk_out[i] = mk;
+  a.th_out[i] = th_l;
+  a.hs_out[i] = hs;
+  vbe = mk ? vb_l : NEG_INF_;
+  the = (hs && (alive || use_wl)) ? th_l : INF_;
+}
+
+// One out-edge folded into its node's reductions (local bound vb_l and
+// its mark mk; child threshold th_l and its flag hs): `ok` says the edge
+// is valid with a child, g_vb and g_th are the child's carries (g_th INF
+// when not ok).
+__device__ __forceinline__ void fold_edge(bool ok, int eco, int g_vb, int g_th, int& vb_l,
+                                          bool& mk, int& th_l, bool& hs) {
+  const bool cm = ok && g_vb > NEG_INF_;
+  vb_l = max(vb_l, cm ? sat_add(g_vb, eco) : NEG_INF_);
+  mk = mk || cm;
+  const bool ch = g_th < INF_;
+  th_l = min(th_l, ch ? sat_sub(g_th, eco) : INF_);
+  hs = hs || ch;
 }
 
 // Layer l of one lane: reads the child carries (vbc, thc), writes this
@@ -109,44 +175,13 @@ __device__ __forceinline__ void sweep_layer(const BwdArgs& a, const LayerRows& r
       const int eco = r.cost[e];
       const bool ok = r.valid[e] && ec >= 0;
       const int cc = min(max(ec, 0), W - 1);
-      const int g_vb = vbc[cc];
-      const bool cm = ok && g_vb > NEG_INF_;
-      vb_l = max(vb_l, cm ? sat_add(g_vb, eco) : NEG_INF_);
-      mk = mk || cm;
-      const int g_th = ok ? thc[cc] : INF_;
-      const bool ch = g_th < INF_;
-      th_l = min(th_l, ch ? sat_sub(g_th, eco) : INF_);
-      hs = hs || ch;
+      fold_edge(ok, eco, vbc[cc], ok ? thc[cc] : INF_, vb_l, mk, th_l, hs);
     }
-    // theta of filter-pruned children that never materialized
-    th_l = min(th_l, ep);
-    hs = hs || ep < INF_;
-    if (!hs) th_l = INF_;
-
-    // thresh_rules (backward.py:42-55, clean.rs:503-517)
-    const bool b1 = sat_add(val, rub) <= bk;
-    const int th1 = sat_sub(bk, rub);
-    const int th2a = min(hs ? th_l : INF_, sat_sub(bk, vb_l));
-    const int th2 = sat_add(val, vb_l) <= bk ? th2a : val;
-    const bool b3 = ex && !hs;
-    const int new_th = b1 ? th1 : (cutf ? th2 : (b3 ? INF_ : th_l));
-    const bool new_hs = hs || b1 || cutf || b3;
-    if (alive) {
-      th_l = new_th;
-      hs = new_hs;
-    }
-    // within-layer dominance: a pruned row's theta is its threshold
-    const bool use_wl = wlp && wlth < INF_;
-    if (use_wl) th_l = wlth;
-    hs = hs || use_wl;
-
-    const size_t i = node0 + w;
-    a.vb_out[i] = vb_l;
-    a.mk_out[i] = mk;
-    a.th_out[i] = th_l;
-    a.hs_out[i] = hs;
-    vbn[w] = mk ? vb_l : NEG_INF_;
-    thn[w] = (hs && (alive || use_wl)) ? th_l : INF_;
+    int vbe, the;
+    finish_node(a, node0 + w, vb_l, th_l, mk, hs, ep, val, rub, wlth, alive, cutf, ex, wlp, bk,
+                vbe, the);
+    vbn[w] = vbe;
+    thn[w] = the;
   }
 }
 
@@ -226,23 +261,28 @@ __device__ __forceinline__ void tma_load(void* dst, const void* src, unsigned by
       : "memory");
 }
 
-// Rows lo .. lo+count-1 of the lane's planes into slot s: 11 bulk copies.
+// Edges e0 .. e0+e-1 and node entries v0 .. v0+v-1 of the 11 planes into
+// slot s: 11 bulk copies completing on `bar`.
+__device__ __forceinline__ void stage(const BwdArgs& a, const Ring& g, char* s, uint64_t* bar,
+                                      size_t e0, unsigned e, size_t v0, unsigned v) {
+  mbar_expect_tx(bar, 9 * e + 20 * v);
+  tma_load(s + g.off[0], a.child + e0, 4 * e, bar);
+  tma_load(s + g.off[1], a.cost + e0, 4 * e, bar);
+  tma_load(s + g.off[2], a.val + v0, 4 * v, bar);
+  tma_load(s + g.off[3], a.rub + v0, 4 * v, bar);
+  tma_load(s + g.off[4], a.ep_theta + v0, 4 * v, bar);
+  tma_load(s + g.off[5], a.wlth + v0, 4 * v, bar);
+  tma_load(s + g.off[6], a.valid + e0, e, bar);
+  tma_load(s + g.off[7], a.cutflag + v0, v, bar);
+  tma_load(s + g.off[8], a.exact + v0, v, bar);
+  tma_load(s + g.off[9], a.mask + v0, v, bar);
+  tma_load(s + g.off[10], a.wlp + v0, v, bar);
+}
+
+// Rows lo .. lo+count-1 of the lane's planes into slot s.
 __device__ __forceinline__ void stage_block(const BwdArgs& a, const Ring& g, char* s,
                                             uint64_t* bar, size_t lo, int count, int W, int C) {
-  const LayerRows r = device_rows(a, lo, W, C);
-  const unsigned e = (unsigned)count * C, v = (unsigned)count * W;
-  mbar_expect_tx(bar, 9 * e + 20 * v);
-  tma_load(s + g.off[0], r.child, 4 * e, bar);
-  tma_load(s + g.off[1], r.cost, 4 * e, bar);
-  tma_load(s + g.off[2], r.val, 4 * v, bar);
-  tma_load(s + g.off[3], r.rub, 4 * v, bar);
-  tma_load(s + g.off[4], r.ep, 4 * v, bar);
-  tma_load(s + g.off[5], r.wlth, 4 * v, bar);
-  tma_load(s + g.off[6], r.valid, e, bar);
-  tma_load(s + g.off[7], r.cutflag, v, bar);
-  tma_load(s + g.off[8], r.exact, v, bar);
-  tma_load(s + g.off[9], r.mask, v, bar);
-  tma_load(s + g.off[10], r.wlp, v, bar);
+  stage(a, g, s, bar, lo * C, (unsigned)count * C, lo * W, (unsigned)count * W);
 }
 
 // Row i of the block staged in slot s.
@@ -313,6 +353,291 @@ __global__ void __launch_bounds__(1024) backward_tma_kernel(BwdArgs a, Ring g, i
   }
 }
 
+// ------------------------------------------------------------- route "stream"
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address of the same shared-memory byte in cluster CTA `rank`
+__device__ __forceinline__ unsigned peer_addr(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// `bytes` of this CTA's shared memory at src into a peer's at dst (both
+// from peer_addr), completing on the peer's mbarrier at bar
+__device__ __forceinline__ void copy_to_peer(unsigned dst, const void* src, unsigned bytes,
+                                             unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Chunk i of a CTA's sequence: layer n-1 - i/P, node slots w0 + (i%P)*S
+// .. +S-1 of the lane's row, staged into ring slot i % R.
+struct StreamGeom {
+  int n, W, D, S, R, P, w0;
+  size_t row0;
+};
+__device__ __forceinline__ void stage_chunk(const BwdArgs& a, const Ring& g, char* ring,
+                                            uint64_t* full, const StreamGeom& m, int i) {
+  const int s = i % m.R;
+  const size_t row = m.row0 + (m.n - 1 - i / m.P);
+  const size_t slot0 = (size_t)m.w0 + (size_t)(i % m.P) * m.S;
+  stage(a, g, ring + (size_t)s * g.bytes, full + s, (row * m.W + slot0) * m.D,
+        (unsigned)(m.S * m.D), row * m.W + slot0, (unsigned)m.S);
+}
+
+// The U nodes' partial reductions each lane holds (v: max, t: min, f: or)
+// reduced over the warp and scattered: halving steps at offsets 16, 8,
+// ... leave each lane half of its partner's and its own nodes (U - 1
+// shuffles of each value in all, against 5 U for a reduction per node),
+// then xor steps finish the lanes that share a node.  Lane L ends with
+// node sum_j bit(L, 4 - j) * U / 2^(j+1) in v[0], t[0], f[0].
+template <int U>
+__device__ __forceinline__ void scatter_reduce(int (&v)[U], int (&t)[U], int (&f)[U], int lane) {
+  int o = 16;
+#pragma unroll
+  for (int half = U / 2; half >= 1; half /= 2, o /= 2) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const int sv = upper ? v[i] : v[i + half], st = upper ? t[i] : t[i + half],
+                sf = upper ? f[i] : f[i + half];
+      if (upper) {
+        v[i] = v[i + half];
+        t[i] = t[i + half];
+        f[i] = f[i + half];
+      }
+      v[i] = max(v[i], __shfl_xor_sync(0xffffffffu, sv, o));
+      t[i] = min(t[i], __shfl_xor_sync(0xffffffffu, st, o));
+      f[i] = f[i] | __shfl_xor_sync(0xffffffffu, sf, o);
+    }
+  }
+  for (; o >= 1; o /= 2) {
+    v[0] = max(v[0], __shfl_xor_sync(0xffffffffu, v[0], o));
+    t[0] = min(t[0], __shfl_xor_sync(0xffffffffu, t[0], o));
+    f[0] = f[0] | __shfl_xor_sync(0xffffffffu, f[0], o);
+  }
+}
+
+// A warp's nodes of one chunk, q0 .. q0+M-1, U passes at a time: pass p
+// gives node p*npw + grp to the group of G lanes grp, whose lanes fold
+// edges d = sub, sub+G, ... of it; the U passes' edge folds interleave,
+// so U independent chains are in flight.  A warp per node (G = 32) with
+// U > 1 reduces by `scatter_reduce`; else each node by xor shuffles over
+// its group and ballots.  Node q0 + j's results end in lane j (vb_m,
+// th_m, mk_m, hs_m).
+template <int U>
+__device__ __forceinline__ void reduce_nodes(const LayerRows& r, const int2* car, int W, int D,
+                                             int S, int G, int M, int q0, int& vb_m, int& th_m,
+                                             bool& mk_m, bool& hs_m) {
+  const int lane = threadIdx.x & 31, npw = 32 / G, sub = lane % G, grp = lane / G;
+  const unsigned gbits = G == 32 ? 0xffffffffu : ((1u << G) - 1u);
+  for (int p0 = 0; p0 * npw < M; p0 += U) {  // warp-uniform
+    int vb[U], th[U], q[U];
+    bool mk[U], hs[U], has[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int mi = (p0 + u) * npw + grp;
+      q[u] = q0 + mi;
+      has[u] = mi < M && q[u] < S;
+      vb[u] = NEG_INF_;
+      th[u] = INF_;
+      mk[u] = hs[u] = false;
+    }
+    for (int d = sub; d < D; d += G) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (has[u]) {
+          const int e = q[u] * D + d;
+          const int ec = r.child[e];
+          const int eco = r.cost[e];
+          const bool ok = r.valid[e] && ec >= 0;
+          const int2 gc = car[min(max(ec, 0), W - 1)];
+          fold_edge(ok, eco, gc.x, ok ? gc.y : INF_, vb[u], mk[u], th[u], hs[u]);
+        }
+      }
+    }
+    if (U > 1 && G == 32) {
+      int fl[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) fl[u] = (int)mk[u] | ((int)hs[u] << 1);
+      scatter_reduce<U>(vb, th, fl, lane);
+      // lane p0 + j takes node j from the lane scatter_reduce left it in
+      const int j = lane - p0;
+      int src = 0;
+#pragma unroll
+      for (int b = 1, o = 16; b < U; b *= 2, o /= 2)
+        if (j & (U / 2 / b)) src |= o;
+      const int v1 = __shfl_sync(0xffffffffu, vb[0], src);
+      const int t1 = __shfl_sync(0xffffffffu, th[0], src);
+      const int f1 = __shfl_sync(0xffffffffu, fl[0], src);
+      if (j >= 0 && j < U) {
+        vb_m = v1;
+        th_m = t1;
+        mk_m = f1 & 1;
+        hs_m = f1 & 2;
+      }
+      continue;
+    }
+    for (int o = G >> 1; o; o >>= 1) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        vb[u] = max(vb[u], __shfl_xor_sync(0xffffffffu, vb[u], o));
+        th[u] = min(th[u], __shfl_xor_sync(0xffffffffu, th[u], o));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const unsigned bm = __ballot_sync(0xffffffffu, mk[u]);
+      const unsigned bh = __ballot_sync(0xffffffffu, hs[u]);
+      const int from = lane - (p0 + u) * npw;  // the group whose node this lane keeps
+      const bool mine = from >= 0 && from < npw;
+      const int src = mine ? from * G : 0;
+      const int v1 = __shfl_sync(0xffffffffu, vb[u], src);
+      const int t1 = __shfl_sync(0xffffffffu, th[u], src);
+      if (mine) {
+        vb_m = v1;
+        th_m = t1;
+        mk_m = (bm >> src) & gbits;
+        hs_m = (bh >> src) & gbits;
+      }
+    }
+  }
+}
+
+// Block k / c of the grid sweeps lane k; within a cluster of c CTAs, CTA
+// `rank` owns node slots [rank*W/c, (rank+1)*W/c), in P chunks of S per
+// layer.  Shared memory: R mbarriers (ring slot full), 2 mbarriers (a
+// carries buffer's peer slices landed), R counters (warps done with the
+// slot's chunk), the carries as (vb_eff, th_eff) pairs [2][W], then the
+// ring of R slots of g.bytes.  Thread 0 stages the first R chunks; after
+// that the last warp to finish chunk i stages chunk i+R into its slot, so
+// up to R chunks, across layer boundaries, are in flight or ready.
+// Within a chunk, warp w takes nodes [w*M, (w+1)*M), M = ceil(S /
+// warps), through `reduce_nodes`; its M lanes then apply the node rules
+// at once and write the outputs and the new carries.  At a layer's end,
+// in a cluster, lanes of warp 0 copy the CTA's slice of the new carries
+// into every peer (one bulk copy each, completing on the peer's mbarrier
+// of that buffer), and every thread waits until its peers' slices have
+// landed: no cluster-wide barrier inside the layer loop.
+template <int U>
+__global__ void __launch_bounds__(U >= 8 ? 512 : 1024)
+    backward_stream_kernel(BwdArgs a, Ring g, int n, int W, int D, int S, int R, int G) {
+  extern __shared__ __align__(16) char smem[];
+  uint64_t* full = (uint64_t*)smem;                          // [R]
+  uint64_t* landed = full + R;                               // [2]
+  int* done = (int*)(landed + 2);                            // [R]
+  int2* car = (int2*)(smem + ((12 * (size_t)R + 31) & ~(size_t)15));  // [2][W]
+  char* ring = (char*)(car + 2 * (size_t)W);                 // [R][g.bytes]
+  const int c = (int)cluster_size(), rank = (int)cluster_rank();
+  const int k = blockIdx.x / c;
+  StreamGeom m;
+  m.n = n;
+  m.W = W;
+  m.D = D;
+  m.S = S;
+  m.R = R;
+  m.P = W / c / S;
+  m.w0 = rank * (W / c);
+  m.row0 = (size_t)k * n;
+  const int total = n * m.P;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int bk = a.best_known[k];
+  const unsigned slice = (unsigned)(W / c) * sizeof(int2);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R; ++s) {
+      mbar_init(full + s, 1);
+      done[s] = 0;
+    }
+    mbar_init(landed, 1);
+    mbar_init(landed + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < R && i < total; ++i) stage_chunk(a, g, ring, full, m, i);
+  }
+  for (int w = threadIdx.x; w < W; w += blockDim.x)
+    car[w] = make_int2(a.vb_init[(size_t)k * W + w], a.th_init[(size_t)k * W + w]);
+  if (c > 1)
+    cluster_sync();  // barriers live in every CTA of the cluster
+  else
+    __syncthreads();
+
+  const int M = (S + nwarps - 1) / nwarps;  // nodes per warp per chunk
+  int cur = 0;
+  for (int l = n - 1; l >= 0; --l) {
+    const int2* carc = car + (size_t)cur * W;
+    int2* carn = car + (size_t)(1 - cur) * W;
+    const size_t node_row = (m.row0 + l) * W;
+    for (int j = 0; j < m.P; ++j) {
+      const int i = (n - 1 - l) * m.P + j, s = i % R;
+      mbar_wait(full + s, (i / R) & 1);
+      const LayerRows r = slot_rows(g, ring + (size_t)s * g.bytes, 0, S, S * D);
+      const int q0 = warp * M;  // the warp's first node of the chunk
+      int vb_m = NEG_INF_, th_m = INF_;
+      bool mk_m = false, hs_m = false;
+      reduce_nodes<U>(r, carc, W, D, S, G, M, q0, vb_m, th_m, mk_m, hs_m);
+      const int q = q0 + lane;
+      if (lane < M && q < S) {
+        const int w = m.w0 + j * S + q;
+        int vbe, the;
+        finish_node(a, node_row + w, vb_m, th_m, mk_m, hs_m, r.ep[q], r.val[q], r.rub[q],
+                    r.wlth[q], r.mask[q], r.cutflag[q], r.exact[q], r.wlp[q], bk, vbe, the);
+        carn[w] = make_int2(vbe, the);
+      }
+      // the chunk's slot is free once every warp is done with it: the
+      // last warp to get here stages chunk i + R into it
+      __syncwarp();
+      if (lane == 0) {
+        __threadfence_block();
+        if (atomicAdd(done + s, 1) == nwarps - 1) {
+          done[s] = 0;
+          __threadfence_block();
+          if (i + R < total) stage_chunk(a, g, ring, full, m, i + R);
+        }
+      }
+    }
+    if (c > 1 && l > 0) {
+      // this layer's carries: the CTA's slice to every peer, then the
+      // peers' slices in; a peer's copy into buffer 1-cur for the layer
+      // after next waits until every CTA has read it for this one
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      const int b = 1 - cur;
+      if (warp == 0 && lane < c) {  // lane t copies to CTA rank + t
+        if (lane == 0) {
+          mbar_expect_tx(landed + b, (unsigned)(c - 1) * slice);
+        } else {
+          const unsigned peer = (unsigned)((rank + lane) % c);
+          copy_to_peer(peer_addr(smem_u32(carn + m.w0), peer), carn + m.w0, slice,
+                       peer_addr(smem_u32(landed + b), peer));
+        }
+      }
+      // buffer b completes a phase every other layer: layers n-1, n-3,
+      // ... fill buffer 1, the others buffer 0
+      mbar_wait(landed + b, ((n - 1 - l) >> 1) & 1);
+    } else {
+      __syncthreads();
+    }
+    cur = 1 - cur;
+  }
+  if (c > 1) cluster_sync();  // no CTA leaves while a peer's copy may read it
+}
+
 // ---------------------------------------------------------------- entry point
 static cudaError_t allow_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -320,12 +645,13 @@ static cudaError_t allow_smem(const void* kernel, size_t smem) {
 }
 
 // `ptrs` is a host array of the 18 device pointers in BwdArgs order;
-// `ring` holds a slot's RING_ROWS plane offsets and its size in bytes;
-// `block` is B, the layers of a ring block, or 0 for the direct route
-// (engine/backward.py `backward_plan` chooses both).  Returns 0 or a CUDA
-// error code.
-extern "C" int fused_backward(const int64_t* ptrs, const int* ring, int block, int K, int n,
-                              int W, int D, void* stream) {
+// `plan` (engine/backward.py `BackwardPlan.ints`) holds the route (0
+// direct, 1 tma, 2 stream), its block (tma: layers per ring block;
+// stream: node slots per chunk), the ring depth, the cluster size, the
+// group size, the threads per CTA, then a ring slot's RING_ROWS plane
+// offsets and its size in bytes.  Returns 0 or a CUDA error code.
+extern "C" int fused_backward(const int64_t* ptrs, const int* plan, int K, int n, int W, int D,
+                              void* stream) {
   BwdArgs a;
   a.child = reinterpret_cast<const int*>(ptrs[0]);
   a.cost = reinterpret_cast<const int*>(ptrs[1]);
@@ -345,24 +671,86 @@ extern "C" int fused_backward(const int64_t* ptrs, const int* ring, int block, i
   a.mk_out = reinterpret_cast<uint8_t*>(ptrs[15]);
   a.th_out = reinterpret_cast<int*>(ptrs[16]);
   a.hs_out = reinterpret_cast<uint8_t*>(ptrs[17]);
-
-  // a thread per node slot, up to a block
-  int threads = ((W + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
+  const int route = plan[0], block = plan[1], depth = plan[2], cluster = plan[3],
+            group = plan[4], threads = plan[5];
+  Ring g;
+  for (int i = 0; i < RING_ROWS; ++i) g.off[i] = plan[6 + i];
+  g.bytes = plan[6 + RING_ROWS];
   cudaStream_t s = (cudaStream_t)stream;
-  if (block == 0) {
+  cudaError_t err;
+  if (route == 0) {
     const size_t smem = (size_t)16 * W;
-    cudaError_t err = allow_smem((const void*)backward_direct_kernel, smem);
+    err = allow_smem((const void*)backward_direct_kernel, smem);
     if (err != cudaSuccess) return err;
     backward_direct_kernel<<<K, threads, smem, s>>>(a, n, W, D);
     return cudaGetLastError();
   }
-  Ring g;
-  for (int i = 0; i < RING_ROWS; ++i) g.off[i] = ring[i];
-  g.bytes = ring[RING_ROWS];
-  const size_t smem = (size_t)16 * W + 2 * (size_t)g.bytes + 2 * sizeof(uint64_t);
-  cudaError_t err = allow_smem((const void*)backward_tma_kernel, smem);
+  if (route == 1) {
+    const size_t smem = (size_t)16 * W + 2 * (size_t)g.bytes + 2 * sizeof(uint64_t);
+    err = allow_smem((const void*)backward_tma_kernel, smem);
+    if (err != cudaSuccess) return err;
+    backward_tma_kernel<<<K, threads, smem, s>>>(a, g, n, W, D, block);
+    return cudaGetLastError();
+  }
+  if (route != 2) return cudaErrorInvalidValue;
+  const size_t smem =
+      ((12 * (size_t)depth + 31) & ~(size_t)15) + (size_t)16 * W + (size_t)depth * g.bytes;
+  // passes of a warp's nodes in flight at once: up to 8, or 4 past 512
+  // threads, where a thread may hold no more than 64 registers
+  const int warps = threads / 32, nodes = (block + warps - 1) / warps;
+  const int passes = (nodes * group + 31) / 32;
+  void (*kernel)(BwdArgs, Ring, int, int, int, int, int, int) = backward_stream_kernel<1>;
+  if (passes >= 8 && threads <= 512)
+    kernel = backward_stream_kernel<8>;
+  else if (passes >= 4)
+    kernel = backward_stream_kernel<4>;
+  else if (passes >= 2)
+    kernel = backward_stream_kernel<2>;
+  err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
-  backward_tma_kernel<<<K, threads, smem, s>>>(a, g, n, W, D, block);
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, g, n, W, D, block, depth, group);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// How many clusters of c "stream" CTAs of `threads` threads and `smem`
+// bytes of shared memory the card holds at once (engine/backward.py
+// CLUSTERS_RESIDENT); a negative CUDA error code on failure.
+extern "C" int stream_resident_clusters(int c, int smem, int threads) {
+  const void* kernel = (const void*)backward_stream_kernel<4>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess && c > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int held = 0;
+  err = cudaOccupancyMaxActiveClusters(&held, kernel, &cfg);
+  return err == cudaSuccess ? held : -(int)err;
 }

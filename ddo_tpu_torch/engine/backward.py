@@ -8,10 +8,10 @@ dimension where ddo_tpu vmaps):
 
   * `backward_scans` — the plain PyTorch version, a Python loop over
     layers vectorized over lanes and slots;
-  * `fused_backward_cuda` — kernel K2 (`csrc/backward.cu`): one CTA per
-    lane with the layer loop inside the kernel, the next block of layers'
-    inputs fetched into shared memory by the TMA while a block computes
-    (`backward_plan` sizes the blocks);
+  * `fused_backward_cuda` — kernel K2 (`csrc/backward.cu`): the layer
+    loop inside the kernel, the coming layers' inputs fetched into shared
+    memory by the TMA while a layer computes, on the route and with the
+    ring, chunk and cluster sizes `backward_plan` chooses;
   * `fused_backward` — K2 for CUDA tensors, `backward_scans` for CPU ones.
 
 All return, for layers 0..n-1: (vb [K, n, W] i32, mk [K, n, W] bool,
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +32,10 @@ from ddo_tpu_torch.utils.num import INF, NEG_INF, sat_add, sat_sub
 
 #: launches of kernel K2 since import
 KERNEL_LAUNCHES = 0
+#: K2's routes, in csrc/backward.cu's numbering
+ROUTES = ("direct", "tma", "stream")
+#: launches of K2 by route since import
+ROUTE_LAUNCHES = {r: 0 for r in ROUTES}
 
 
 def thresh_rules(best_known, alive, val, rub, vb, cutf, exact, th, hs):
@@ -111,32 +116,137 @@ def backward_scans(E_child, E_cost, E_valid, S_val, S_rub, cutflag, S_exact,
     return vb, mk, th, hs
 
 
-#: layers per block of K2's ring, most first
+#: layers per block of the "tma" route's ring, most first
 BLOCK_LAYERS = (16, 8, 4, 2, 1)
+#: the "stream" route: ring slots, at least where they fit (fewer, larger
+#: chunks cost less per layer) and at most; warps per CTA, at most
+STREAM_MIN_DEPTH = 3
+STREAM_MAX_DEPTH = 32
+STREAM_WARPS = 16
+#: clusters of c CTAs (a power of two up to 16; past 8 a non-portable
+#: size) an H100 SXM holds at once at one CTA per SM, as
+#: `cudaOccupancyMaxActiveClusters` reports for a "stream" CTA at the most
+#: shared memory it takes (chip_smoke.py checks it on the card): lanes
+#: past it would wait for a second wave, so the planner keeps K within it
+CLUSTERS_RESIDENT = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+MAX_CLUSTER = max(CLUSTERS_RESIDENT)
 
 
-def backward_plan(W: int, D: int):
-    """K2's route for node width W and D out-edges per node: (B, layout).
+class BackwardPlan(NamedTuple):
+    """How K2 sweeps a shape.  `block`: layers per ring block ("tma") or
+    node slots per chunk ("stream"); `depth`: ring slots; `cluster`: CTAs
+    per lane; `group`: lanes that reduce one node's edges ("stream");
+    `layout`: a ring slot's byte offset of each of the 11 planes, in the
+    order of csrc/backward.cu's LayerRows, then the slot's size; `smem`:
+    the shared memory of one CTA."""
+    route: str
+    block: int
+    depth: int
+    cluster: int
+    group: int
+    threads: int
+    layout: tuple
+    smem: int
 
-    B is the most layers per block (BLOCK_LAYERS) for which two blocks of
-    the 11 input planes fit one block's shared memory beside the 16*W
-    bytes of carries, when every row is a multiple of 16 bytes (W % 16 ==
-    0) so the TMA can copy it; else 0, the direct route.  `layout` is a
-    ring slot's byte offset of each plane's B rows, in the order of
-    csrc/backward.cu's LayerRows, then the slot's size.  Raises when the
-    carries alone exceed shared memory."""
+    def ints(self):
+        """The plan as csrc/backward.cu's `fused_backward` reads it."""
+        return [ROUTES.index(self.route), self.block, self.depth, self.cluster,
+                self.group, self.threads, *self.layout]
+
+
+def _plane_bytes(slots, D):
+    """Bytes of the 11 input planes for `slots` node slots, LayerRows order."""
+    return [4 * slots * D] * 2 + [4 * slots] * 4 + [slots * D] + [slots] * 4
+
+
+def _layout(rows):
+    return tuple(sum(rows[:i]) for i in range(len(rows) + 1))
+
+
+def _threads(W):
+    """A thread per node slot, in whole warps, up to a block."""
+    return min(1024, -(-W // 32) * 32)
+
+
+def _tma_plan(W, D):
+    """The most layers per block whose two blocks fit beside the carries."""
+    for B in BLOCK_LAYERS:
+        layout = _layout([B * r for r in _plane_bytes(W, D)])
+        smem = 16 * W + 2 * layout[-1] + 16
+        if smem <= cuda_build.SMEM_PER_BLOCK:
+            return BackwardPlan("tma", B, 2, 1, 1, _threads(W), layout, smem)
+    return None
+
+
+def _stream_cluster(K, W):
+    """The "stream" route's CTAs per lane: the largest cluster size whose
+    K clusters the card holds at once (few lanes spread over the card)
+    and that leaves each CTA a multiple of 16 node slots."""
+    return max(c for c, held in CLUSTERS_RESIDENT.items()
+               if c == 1 or (K <= held and W % (16 * c) == 0))
+
+
+def _ring(W, D, S):
+    """(layout, ring slots, shared memory) of chunks of S node slots: as
+    many slots as fit beside the carries, up to STREAM_MAX_DEPTH."""
+    layout = _layout(_plane_bytes(S, D))
+    smem = lambda R: (12 * R + 31) // 16 * 16 + 16 * W + R * layout[-1]
+    R = STREAM_MAX_DEPTH
+    while R and smem(R) > cuda_build.SMEM_PER_BLOCK:
+        R -= 1
+    return layout, R, smem(R)
+
+
+def _stream_plan(W, D, c):
+    """Chunks of S node slots, S the largest multiple of 16 dividing the
+    CTA's W / c (up to 32 a warp) whose ring holds STREAM_MIN_DEPTH
+    chunks, else 16; None when not even two chunks of 16 fit."""
+    Wc = W // c
+    sizes = [S for S in range(16, min(Wc, 32 * STREAM_WARPS) + 1, 16) if Wc % S == 0]
+    S = max([S for S in sizes if _ring(W, D, S)[1] >= STREAM_MIN_DEPTH], default=16)
+    layout, R, smem = _ring(W, D, S)
+    if R < 2:
+        return None
+    G = min(32, 1 << max(0, D - 1).bit_length())
+    # two passes of nodes a warp, at least, and a warp's nodes in its lanes
+    warps = min(STREAM_WARPS, max(-(-S * G // 64), -(-S // 32)))
+    return BackwardPlan("stream", S, R, c, G, 32 * warps, layout, smem)
+
+
+def backward_plan(K: int, W: int, D: int, route: str | None = None,
+                  cluster: int | None = None) -> BackwardPlan:
+    """K2's route for K lanes of node width W with D out-edges per node.
+
+    A bulk copy needs rows that are 16-byte multiples, so W % 16 != 0
+    takes "direct".  Otherwise "tma" where two blocks of one layer fit
+    shared memory beside the 16*W bytes of carries (low branching), and
+    "stream" where they do not (high branching, very wide layers), or
+    "direct" where not even two chunks of 16 node slots fit.  `route` and
+    `cluster` (the "stream" route's CTAs per lane) force a choice, so that
+    a comparison can run several on one shape; a route that cannot take
+    the shape raises, as do carries past one block's shared memory."""
     carries = 16 * W
     if carries > cuda_build.SMEM_PER_BLOCK:
         raise ValueError(f"fused_backward: W={W} carries exceed the shared memory of "
                          "one block")
+    if cluster is not None:
+        if route not in (None, "stream"):
+            raise ValueError("fused_backward: only the stream route takes a cluster")
+        route = "stream"
+        if cluster not in [1 << i for i in range(MAX_CLUSTER.bit_length())] \
+                or W % (16 * cluster):
+            raise ValueError(f"fused_backward: no cluster of {cluster} CTAs at W={W}")
+    plans = {"direct": BackwardPlan("direct", 0, 0, 1, 1, _threads(W), (0,) * 12, carries)}
     if W % 16 == 0:
-        C = W * D
-        rows = [4 * C, 4 * C] + [4 * W] * 4 + [C] + [W] * 4
-        for B in BLOCK_LAYERS:
-            layout = [B * sum(rows[:i]) for i in range(len(rows) + 1)]
-            if carries + 2 * layout[-1] + 16 <= cuda_build.SMEM_PER_BLOCK:
-                return B, layout
-    return 0, [0] * 12
+        plans["tma"] = _tma_plan(W, D)
+        plans["stream"] = _stream_plan(W, D, cluster or _stream_cluster(K, W))
+    if route is None:
+        route = next(r for r in ("tma", "stream", "direct") if plans.get(r))
+    if route not in ROUTES:
+        raise ValueError(f"fused_backward: no route {route!r}")
+    if not plans.get(route):
+        raise ValueError(f"fused_backward: the {route} route does not take W={W}, D={D}")
+    return plans[route]
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,15 +254,28 @@ def _lib():
     lib = cuda_build.load("backward")
     lib.fused_backward.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_void_p]
+                                   ctypes.c_void_p]
     lib.fused_backward.restype = ctypes.c_int
+    lib.stream_resident_clusters.argtypes = [ctypes.c_int] * 3
+    lib.stream_resident_clusters.restype = ctypes.c_int
     return lib
+
+
+def resident_clusters(c, smem, threads):
+    """How many clusters of c "stream" CTAs the card holds at once, as
+    `cudaOccupancyMaxActiveClusters` reports (for CLUSTERS_RESIDENT)."""
+    held = _lib().stream_resident_clusters(c, smem, threads)
+    cuda_build.check(max(0, -held), "cudaOccupancyMaxActiveClusters")
+    return held
 
 
 def fused_backward_cuda(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
                         S_exact, S_mask, vb_init, th_init, best_known,
-                        ep_theta=None, wl_pruned=None, wl_ptheta=None):
-    """Kernel K2 on CUDA tensors; raises on what the kernel does not take."""
+                        ep_theta=None, wl_pruned=None, wl_ptheta=None,
+                        route=None, cluster=None):
+    """Kernel K2 on CUDA tensors; raises on what the kernel does not take.
+    `route` and `cluster` force `backward_plan`'s choice.  Planes off a
+    16-byte boundary take "direct", which reads them in place."""
     global KERNEL_LAUNCHES
     ep_theta, wl_pruned, wl_ptheta = _filter_defaults(S_val, ep_theta, wl_pruned,
                                                       wl_ptheta)
@@ -180,23 +303,28 @@ def fused_backward_cuda(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
                              f"got {t.dtype} {list(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"fused_backward: {name} must be contiguous")
+    plan = backward_plan(K, W, C // W, route, cluster)
+    if plan.route != "direct" and any(t.data_ptr() % 16 for _, t, _, _ in spec[:11]):
+        if route or cluster:
+            raise ValueError(f"fused_backward: the {plan.route} route needs 16-byte "
+                             "aligned planes")
+        plan = backward_plan(K, W, C // W, "direct")
     vb = torch.empty((K, n, W), dtype=i32, device=dev)
     th = torch.empty_like(vb)
     mk = torch.empty((K, n, W), dtype=torch.uint8, device=dev)
     hs = torch.empty_like(mk)
-    block, layout = backward_plan(W, C // W)
-    if block and any(t.data_ptr() % 16 for _, t, _, _ in spec[:11]):
-        block = 0  # a bulk copy needs 16-byte aligned planes
     if K and n:
         ptrs = (ctypes.c_int64 * 18)(*[t.data_ptr() for _, t, _, _ in spec],
                                      vb.data_ptr(), mk.data_ptr(),
                                      th.data_ptr(), hs.data_ptr())
-        ring = (ctypes.c_int * len(layout))(*layout)
+        ints = plan.ints()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            status = _lib().fused_backward(ptrs, ring, block, K, n, W, C // W, stream)
-        cuda_build.check(status, "fused_backward")
+            status = _lib().fused_backward(ptrs, (ctypes.c_int * len(ints))(*ints), K, n, W,
+                                           C // W, stream)
+        cuda_build.check(status, f"fused_backward ({plan.route})")
         KERNEL_LAUNCHES += 1
+        ROUTE_LAUNCHES[plan.route] += 1
     return vb, mk.view(torch.bool), th, hs.view(torch.bool)
 
 

@@ -30,6 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: shared memory one block of an sm_90 card may opt into (bytes)
 SMEM_PER_BLOCK = 232_448
+#: streaming multiprocessors of an H100 SXM
+SM_COUNT = 132
 
 
 def _nvcc() -> str:

@@ -67,6 +67,26 @@ def test_batched_matches_vmapped_scans_and_pallas(seed, filters):
             np.testing.assert_array_equal(np.asarray(pal[i]), got[i], err_msg=name)
 
 
+@pytest.mark.parametrize("filters", [False, True])
+def test_high_branching_matches_vmapped_scans_and_pallas(filters):
+    """D=61 out-edges per node (TSPTW N60's branching), K=2 lanes: the
+    port against `jax.vmap(backward_scans)` and `backward_pallas_batched`
+    in interpret mode (given neutral filters when they are off)."""
+    rng = np.random.default_rng(300 + filters)
+    args, bk, extras = random_case(rng, 5, 16, 61, K=2)
+    j = [jnp.asarray(a) for a in args]
+    if not filters:
+        ep, wlp, wlth = extras
+        extras = [np.full_like(ep, INF), np.zeros_like(wlp), np.full_like(wlth, INF)]
+    je = [jnp.asarray(a) for a in extras]
+    pal = jbwd.backward_pallas_batched(*j, jnp.asarray(bk), *je, interpret=True)
+    ref = jax.vmap(jbwd.backward_scans)(*j, jnp.asarray(bk), *(je if filters else []))
+    got = _port(args, bk, extras if filters else [])
+    for i, name in enumerate(NAMES):
+        np.testing.assert_array_equal(np.asarray(ref[i]), got[i], err_msg=name)
+        np.testing.assert_array_equal(np.asarray(pal[i]), got[i], err_msg=name)
+
+
 def test_thresh_rules_matches():
     rng = np.random.default_rng(5)
     W = 64

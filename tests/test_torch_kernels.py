@@ -360,6 +360,24 @@ def test_lane_sort_merge_tile_boundaries_on_card(L, C, nk):
         assert torch.equal(r, g)
 
 
+def _backward_on_card(K, n, W, D, seed, filters=True, **force):
+    """K2 against `backward_scans` on the card, bit for bit; returns the
+    route it launched on (one launch, counted once, on that route)."""
+    _card()
+    args, bk, extras = random_case(np.random.default_rng(seed), n, W, D, K)
+    t = [torch.from_numpy(a).cuda() for a in args + [bk] + (extras if filters else [])]
+    ref = tbwd.backward_scans(*t)
+    before, by_route = tbwd.KERNEL_LAUNCHES, dict(tbwd.ROUTE_LAUNCHES)
+    got = tbwd.fused_backward_cuda(*t, **force)
+    torch.cuda.synchronize()
+    assert tbwd.KERNEL_LAUNCHES == before + 1
+    taken = [r for r in tbwd.ROUTES if tbwd.ROUTE_LAUNCHES[r] != by_route[r]]
+    assert len(taken) == 1 and tbwd.ROUTE_LAUNCHES[taken[0]] == by_route[taken[0]] + 1
+    for r, g, name in zip(ref, got, NAMES):
+        assert torch.equal(r, g), name
+    return taken[0]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,n,W,D", [
     (1, 7, 16, 3), (4, 6, 8, 3), (128, 200, 256, 2), (2, 5, 1100, 2),
@@ -368,56 +386,130 @@ def test_lane_sort_merge_tile_boundaries_on_card(L, C, nk):
     (1, 3, 2048, 2),                             # TMA ring, blocks of one layer
     (3, 1, 7, 1), (3, 2, 7, 3), (3, 3, 7, 1),    # direct route: rows not 16-byte multiples
     (2, 3, 1100, 3), (2, 9, 1100, 1),            # direct route, W beyond one block
-    (1, 3, 4096, 2),                             # direct route: two blocks do not fit
+    (1, 3, 4096, 2),                             # stream route: two layers do not fit
 ])
 def test_fused_backward_matches_plain_on_card(K, n, W, D):
-    _card()
-    rng = np.random.default_rng(K * 1000 + W)
-    args, bk, extras = random_case(rng, n, W, D, K)
-    t = [torch.from_numpy(a).cuda() for a in args + [bk] + extras]
-    ref = tbwd.backward_scans(*t)
-    before = tbwd.KERNEL_LAUNCHES
-    got = tbwd.fused_backward_cuda(*t)
-    torch.cuda.synchronize()
-    assert tbwd.KERNEL_LAUNCHES == before + 1
-    for r, g, name in zip(ref, got, NAMES):
-        assert torch.equal(r, g), name
-
-
-def test_backward_plan():
-    """K2's route by shape: the TMA ring with the most layers per block
-    whose two blocks fit beside the carries, when rows are 16-byte
-    multiples; else the direct route; a refusal past shared memory.  A
-    slot holds each plane's B rows, 16-byte aligned."""
-    for W, D, B in [(256, 2, 8), (16, 1, 16), (64, 3, 16), (2048, 2, 1), (8, 2, 0),
-                    (7, 1, 0), (1100, 3, 0), (4096, 2, 0)]:
-        block, layout = tbwd.backward_plan(W, D)
-        assert block == B
-        if block:
-            C = W * D
-            rows = [4 * C] * 2 + [4 * W] * 4 + [C] + [W] * 4
-            assert [b - a for a, b in zip(layout, layout[1:])] == [B * r for r in rows]
-            assert all(o % 16 == 0 for o in layout)
-            assert 16 * W + 2 * layout[-1] + 16 <= tbwd.cuda_build.SMEM_PER_BLOCK
-    with pytest.raises(ValueError, match="shared memory"):
-        tbwd.backward_plan(16_000, 1)
+    route = _backward_on_card(K, n, W, D, K * 1000 + W)
+    assert route == tbwd.backward_plan(K, W, D).route
 
 
 @pytest.mark.cuda
-def test_fused_backward_misaligned_planes_on_card():
+@pytest.mark.parametrize("filters", [True, False])
+@pytest.mark.parametrize("K,n,W,D,cluster", [
+    (128, 3, 256, 61, None),   # TSPTW N60's D, one CTA per lane
+    (4, 6, 256, 61, None),     # four lanes: clusters of 16
+    (1, 5, 256, 380, None),    # SOP with 380 jobs, one lane
+    (16, 4, 256, 60, None),    # SRFLP n=60: clusters of 8
+    (1, 9, 256, 61, None),     # one lane
+    (4, 1, 256, 61, None),     # n below the ring depth (25 chunks)
+    (2, 2, 256, 2, None),      # n below the ring depth, low branching
+    (2, 7, 256, 61, 1), (2, 7, 256, 61, 2), (2, 7, 256, 61, 4),
+    (2, 7, 256, 61, 8), (2, 7, 256, 61, 16),  # every cluster size
+    (3, 5, 16, 1, 1),          # one lane per node (G = 1)
+    (3, 5, 16, 9, 1),          # groups of 16 lanes
+    (3, 4, 64, 3, 2),          # groups of 4 lanes, a cluster of 2
+    (2, 4, 4096, 2, None),     # very wide layers: 16 CTAs x 256 slots
+    (1, 30, 256, 2, 16),       # the one-lane knapsack shape, spread out
+    (2, 3, 8192, 1, 1),        # chunks of 512 slots, a lane per node
+])
+def test_fused_backward_stream_on_card(K, n, W, D, cluster, filters):
+    """The "stream" route (sub-layer chunks through a ring, a cluster per
+    lane) against `backward_scans`, forced where "tma" would win."""
+    route = _backward_on_card(K, n, W, D, 7 * K + n + D, filters, route="stream",
+                              cluster=cluster)
+    assert route == "stream"
+
+
+@pytest.mark.parametrize("K,W,D,route,block,cluster", [
+    (128, 256, 2, "tma", 8, 1), (1, 16, 1, "tma", 16, 1), (4, 64, 3, "tma", 16, 1),
+    (128, 2048, 2, "tma", 1, 1), (16, 8, 2, "direct", 0, 1), (3, 7, 1, "direct", 0, 1),
+    (8, 1100, 3, "direct", 0, 1),
+    (4, 4096, 2, "stream", 256, 16),   # was "direct" before the stream route
+    (128, 256, 61, "stream", 128, 1),  # TSPTW N60: chunks of 128 slots, 3 in the ring
+    (4, 256, 61, "stream", 16, 16),
+    (1, 256, 380, "stream", 16, 16),   # SOP, 380 jobs
+    (16, 256, 60, "stream", 64, 4),    # SRFLP n=60: 16 clusters of 8 would not all fit
+    (7, 256, 60, "stream", 16, 16), (8, 256, 60, "stream", 32, 8),
+    (30, 256, 60, "stream", 64, 4), (31, 256, 60, "stream", 128, 2),
+    (67, 256, 60, "stream", 128, 1), (2, 64, 200, "stream", 16, 4),
+    (1, 32, 61, "tma", 4, 1),
+    (1, 256, 800, "direct", 0, 1),     # not even two chunks of 16 slots fit
+])
+def test_backward_plan(K, W, D, route, block, cluster):
+    """K2's route by shape: "tma" with the most layers per block whose two
+    blocks fit beside the carries, when rows are 16-byte multiples;
+    "stream" where they do not, its chunks a multiple of 16 slots that
+    divides each CTA's share, its cluster a power of two spread over at
+    most 132 SMs; "direct" for the rest.  Every copy is a 16-byte multiple
+    at a 16-byte offset, and the ring fits shared memory."""
+    plan = tbwd.backward_plan(K, W, D)
+    assert (plan.route, plan.block, plan.cluster) == (route, block, cluster)
+    assert plan.smem <= tbwd.cuda_build.SMEM_PER_BLOCK
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    sizes = [b - a for a, b in zip(plan.layout, plan.layout[1:])]
+    if route == "tma":
+        rows = [4 * W * D] * 2 + [4 * W] * 4 + [W * D] + [W] * 4
+        assert sizes == [block * r for r in rows]
+        assert plan.smem == 16 * W + 2 * plan.layout[-1] + 16
+    if route == "stream":
+        S, R, c, G = plan.block, plan.depth, plan.cluster, plan.group
+        assert S % 16 == 0 and W % (S * c) == 0
+        assert c & (c - 1) == 0 and c <= tbwd.MAX_CLUSTER and K * c <= 132
+        assert R >= tbwd.STREAM_MIN_DEPTH or S == 16
+        assert sizes == [4 * S * D] * 2 + [4 * S] * 4 + [S * D] + [S] * 4
+        assert R >= 2 and plan.smem == (12 * R + 31) // 16 * 16 + 16 * W + R * plan.layout[-1]
+        assert G == min(32, 1 << (D - 1).bit_length())
+        assert -(-S // (plan.threads // 32)) <= 32  # a warp's nodes fit its lanes
+    if route != "direct":
+        assert all(o % 16 == 0 for o in plan.layout) and all(b % 16 == 0 for b in sizes)
+    assert plan.ints()[0] == tbwd.ROUTES.index(route) and len(plan.ints()) == 18
+
+
+def test_backward_plan_forced_routes():
+    """A forced route or cluster is taken where it fits and refused where
+    it does not; carries past shared memory are refused."""
+    assert tbwd.backward_plan(128, 256, 2, "stream").route == "stream"
+    assert tbwd.backward_plan(128, 256, 2, "direct").route == "direct"
+    assert tbwd.backward_plan(4, 256, 61, cluster=2).cluster == 2
+    wide = tbwd.backward_plan(200, 8192, 1, "stream")  # one lane per node, 512 a chunk
+    assert (wide.block, wide.group, wide.threads) == (512, 1, 512)
+    with pytest.raises(ValueError, match="does not take"):
+        tbwd.backward_plan(128, 256, 61, "tma")
+    with pytest.raises(ValueError, match="does not take"):
+        tbwd.backward_plan(4, 8, 2, "stream")
+    with pytest.raises(ValueError, match="no cluster"):
+        tbwd.backward_plan(4, 256, 61, cluster=3)
+    with pytest.raises(ValueError, match="no cluster"):
+        tbwd.backward_plan(4, 256, 61, cluster=32)
+    with pytest.raises(ValueError, match="only the stream route"):
+        tbwd.backward_plan(4, 256, 61, "tma", cluster=2)
+    with pytest.raises(ValueError, match="no route"):
+        tbwd.backward_plan(4, 256, 61, "radix")
+    with pytest.raises(ValueError, match="shared memory"):
+        tbwd.backward_plan(1, 16_000, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n,W,D", [(3, 9, 32, 2), (4, 3, 256, 61)])
+def test_fused_backward_misaligned_planes_on_card(K, n, W, D):
     """A plane that starts off a 16-byte boundary takes the direct route
-    at a width the TMA ring would take."""
+    at a width a bulk-copy route ("tma", "stream") would take; forcing a
+    bulk-copy route on it raises."""
     _card()
     rng = np.random.default_rng(5)
-    args, bk, extras = random_case(rng, 9, 32, 2, 3)
+    args, bk, extras = random_case(rng, n, W, D, K)
     t = [torch.from_numpy(a).cuda() for a in args + [bk] + extras]
     shifted = torch.empty(t[3].numel() + 1, dtype=torch.int32, device="cuda")[1:]
     t[3] = shifted.view(t[3].shape).copy_(t[3])
     assert t[3].data_ptr() % 16 and t[3].is_contiguous()
     ref = tbwd.backward_scans(*t)
+    direct = tbwd.ROUTE_LAUNCHES["direct"]
     got = tbwd.fused_backward_cuda(*t)
+    assert tbwd.ROUTE_LAUNCHES["direct"] == direct + 1
     for r, g, name in zip(ref, got, NAMES):
         assert torch.equal(r, g), name
+    with pytest.raises(ValueError, match="16-byte"):
+        tbwd.fused_backward_cuda(*t, route=tbwd.backward_plan(K, W, D).route)
 
 
 def test_fused_backward_refuses_cpu_tensors():
