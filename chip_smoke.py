@@ -24,14 +24,15 @@ Phases, each printing its own line(s):
      and differ later; "merge" at 1 row, at 1,023 to 1,025 rows, at its
      tile and window boundaries, at 50,000 rows, and with every key in
      {0, 1}, where the payloads too must be the stable plain version's; K2
-     also at TSPTW N60's D=61 in 4 lanes, SOP with 380 jobs in one lane
-     and SRFLP n=60 in 16 lanes at W=256, with fewer layers than a ring
+     also at TSPTW N60's D=61 in 1, 4 and 60 lanes, SOP with 380 jobs in
+     one lane and SRFLP n=60 in 16 lanes at W=256, with fewer layers than a ring
      block, at W=1100 (no bulk copy) and at W=4096), each with its time,
      the plain version's, the least time the card could take
      (`bound_ms`, bytes or operations, one yardstick for every route) and
      the share of it reached; every route of either kernel that takes a
      case is checked and timed, in turns (K2's "stream" also at one CTA
-     per lane where its plan takes a cluster), and the knapsack sorts' and
+     per lane where its plan takes a cluster, and with one node pass in
+     flight where its plan keeps more), and the knapsack sorts' and
      one 141-operand call's host time per call;
   3. the main path at real size: a seeded uncorrelated knapsack with
      n=2000 (Pisinger's knapPI_1 family), a restricted and a relaxed
@@ -101,16 +102,21 @@ Phases, each printing its own line(s):
      whose every plane equals the CPU path's: max2sat at 135 variables
      (141 operands) at W=32 on K1's "perm" route and at W=256 on "merge",
      max-cut at 135, max2sat at 220 (226 operands);
+ 17. `SequentialSolver.maximize` on phase 9's instance at W=256, 128
+     lanes a superstep, cache and dominance on, for 20 s: the lanes of
+     each compile, K2's launches by cluster size (its first supersteps
+     compile few lanes, spread over clusters), the best tour replayed;
 then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Every check raises on failure, so the script exits non-zero and prints no
 result; without CUDA it exits non-zero at once.  Each path has launch
 counts of its own, zeroed just before the path and read just after it:
 knapsack (phases 3-4), MISP (6-7), max2sat and max-cut (8, one count
-each), TSPTW (9-10), sop, srflp, lcs, psp and alp (11, one count each),
-device_loop (13: the device loop's own runs, each zeroed just before it
-and read just after), native (14), cli (15) and wide (16); both kernels
-must have launched in each, and each kernel's count is also kept by
-route.  Phases 5 and 12 are in no count.
+each), TSPTW (9-10), tsptw_search (17), sop, srflp, lcs, psp and alp
+(11, one count each), device_loop (13: the device loop's own runs, each
+zeroed just before it and read just after), native (14), cli (15) and
+wide (16); both kernels must have launched in each, and each kernel's
+count is also kept by route (K2's "stream" route's also by cluster
+size).  Phases 5 and 12 are in no count.
 
     python3 chip_smoke.py --parent DIR
 
@@ -118,6 +124,12 @@ also times, in phase 2, the K1 and K2 of another checkout at DIR (a
 parent commit unpacked with `git archive`), on the route each would
 choose, in turns with this checkout's routes, and K1's host time per
 call of both.
+
+    python3 chip_smoke.py --sweep-k2
+
+builds the kernels (phase 1), then times K2's "stream" route at its
+phase-2 cases under other values of its planner's constants
+(`sweep_k2`), and stops.
 """
 
 import dataclasses
@@ -134,6 +146,7 @@ MISP_N, MISP_P = 200, 0.1  # the MISP compile's graph: G(n, p), unit weights
 SMALL_N, SMALL_W, SMALL_BATCH = 16, 8, 16  # the max2sat and max-cut runs
 TSPTW_N, TSPTW_WINDOW = 61, 200.0  # Langevin's N60 class: 60 customers and a depot
 TSPTW_SMALL_N = 21  # the N20 class, for `maximize` against the exact oracle
+TSPTW_SEARCH_S = 20.0  # the N60 search's time budget (phase 17)
 # past 128 sort operands (phase 16): max2sat and max-cut at 135 variables
 # (the frb15-9 instances' size, 141 operands), max2sat at 220 (frb20-11)
 WIDE_N, WIDE_N2 = 135, 220
@@ -387,14 +400,20 @@ def tree_kernels(root):
     return srt, bwd
 
 
-def parent_backward_route(parent_bwd, K, W, D):
-    """The route the parent's K2 takes at a shape: its `backward_plan`
-    took (W, D) and returned (layers per block, layout) before the
-    "stream" route, 0 layers meaning "direct"."""
-    try:
-        return parent_bwd.backward_plan(K, W, D).route
-    except TypeError:
-        return "tma" if parent_bwd.backward_plan(W, D)[0] else "direct"
+def parent_backward_route(parent_bwd, args):
+    """The route the parent's K2 takes on `args`, read from its launch
+    counts by route around one call.  A parent whose K2 counts its
+    launches only in all (a tree from before the "stream" route) has a
+    `backward_plan(W, D)` that returns (layers per block, layout), 0
+    layers meaning "direct"; this fallback can go once no such tree is
+    timed."""
+    counts = getattr(parent_bwd, "ROUTE_LAUNCHES", None)
+    if counts is None:
+        W, C = args[3].shape[2], args[0].shape[2]
+        return "tma" if parent_bwd.backward_plan(W, C // W)[0] else "direct"
+    before = dict(counts)
+    parent_bwd.fused_backward_cuda(*args)
+    return next(r for r in counts if counts[r] != before[r])
 
 
 def phase_kernels(torch, dev, extra_k1=(), parent=None):
@@ -476,9 +495,12 @@ K2_CASES = [
     ("one_lane", 1, N_ITEMS, WIDTH, 2, 10),
     ("misp", K_LANES, MISP_N, WIDTH, 2, 20),
     ("small", SMALL_BATCH, SMALL_N, SMALL_W, 2, 50),
-    # the TSPTW compile's sweep: D = 61, and the same at four lanes
+    # the TSPTW compile's sweep: D = 61, and the same at four lanes, at
+    # one and at 60 (phase 17's first supersteps)
     ("tsptw", K_LANES, TSPTW_N, WIDTH, TSPTW_N, 10),
     ("tsptw_4lanes", 4, TSPTW_N, WIDTH, TSPTW_N, 20),
+    ("tsptw_1lane", 1, TSPTW_N, WIDTH, TSPTW_N, 20),
+    ("tsptw_60lanes", 60, TSPTW_N, WIDTH, TSPTW_N, 20),
     # SOP with 380 jobs in one lane, SRFLP n=60 at 16 lanes (K1's rows
     # 1f and 1g), W=256
     ("sop380", 1, 380, WIDTH, 380, 5),
@@ -500,9 +522,10 @@ K2_CASES = [
 def backward_row(torch, gen, dev, bwd, label, K, n, W, D, reps, parent):
     """One K2 case: every route that takes it ("tma" where two layers fit,
     "stream" where rows are 16-byte multiples, and at one CTA per lane too
-    where its plan spreads a lane over a cluster, "direct" always) held
-    bit-equal to `backward_scans` and timed in turns (a, b, ..., b, a),
-    the parent's K2 first and last; the plan's route first."""
+    where its plan spreads a lane over a cluster, and with one node pass
+    in flight where its plan keeps more, "direct" always) held bit-equal
+    to `backward_scans` and timed in turns (a, b, ..., b, a), the parent's
+    K2 first and last; the plan's route first."""
     args = backward_case(torch, gen, K, n, W, D, dev)
     ref = bwd.backward_scans(*args)
     plan = bwd.backward_plan(K, W, D)
@@ -515,6 +538,8 @@ def backward_row(torch, gen, dev, bwd, label, K, n, W, D, reps, parent):
         forced.setdefault(r, {"route": r})
         if r == "stream" and other.cluster > 1:
             forced["stream_c1"] = {"route": "stream", "cluster": 1}
+        if r == "stream" and other.unroll > 1:
+            forced["stream_u1"] = {"route": "stream", "unroll": 1}
     err = 0
     for name, kw in forced.items():
         got = bwd.fused_backward_cuda(*args, **kw)
@@ -525,6 +550,7 @@ def backward_row(torch, gen, dev, bwd, label, K, n, W, D, reps, parent):
     calls = {name: (lambda kw=kw: bwd.fused_backward_cuda(*args, **kw))
              for name, kw in forced.items()}
     if parent is not None:
+        parent_route = parent_backward_route(parent[1], args)
         calls = {"parent": lambda: parent[1].fused_backward_cuda(*args), **calls}
     ms = {k: [] for k in calls}
     for k in list(calls) + list(calls)[::-1]:
@@ -534,18 +560,84 @@ def backward_row(torch, gen, dev, bwd, label, K, n, W, D, reps, parent):
     b_ms, b_by = backward_bound(K, n, W, D)
     row = {"phase": "kernel", "kernel": "fused_backward", "case": label, "route": plan.route,
            "cluster": plan.cluster, "block": plan.block, "depth": plan.depth,
-           "group": plan.group, "threads": plan.threads, "shape": [K, n, W, D],
+           "group": plan.group, "unroll": plan.unroll, "threads": plan.threads,
+           "shape": [K, n, W, D],
            "max_abs_err": err, "ms": mean[plan.route], "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / mean[plan.route]}
     for k in forced:
         if k != plan.route:
             row[f"{k}_route_ms"] = mean[k]
     if parent is not None:
-        row.update(parent_route=parent_backward_route(parent[1], K, W, D),
-                   parent_ms=mean["parent"], parent_ms_turns=ms["parent"],
-                   ms_turns=ms[plan.route])
+        row.update(parent_route=parent_route, parent_ms=mean["parent"],
+                   parent_ms_turns=ms["parent"], ms_turns=ms[plan.route])
     log(json.dumps(row))
     return row
+
+
+#: the "stream" planner's constants (engine/backward.py) and the values
+#: `sweep_k2` tries; the cases of K2_CASES it tries them on
+K2_SWEEP = {"STREAM_MIN_DEPTH": (2, 3, 4, 6), "STREAM_MAX_DEPTH": (3, 6, 32),
+            "STREAM_WARPS": (4, 8, 16), "STREAM_PASSES": (1, 2, 4)}
+K2_SWEEP_CASES = ("tsptw", "tsptw_1lane", "tsptw_4lanes", "sop380", "srflp60", "direct")
+
+
+def sweep_k2(torch, dev):
+    """`--sweep-k2`: K2's "stream" route at K2_SWEEP_CASES under every
+    combination of K2_SWEEP's planner constants.  Each distinct plan is
+    held bit-equal to `backward_scans` and timed in turns (a, b, ..., b,
+    a); one line per case: the planner's plan and time, then each plan's
+    constants and time, fastest first."""
+    from ddo_tpu_torch.engine import backward as bwd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    saved = {k: getattr(bwd, k) for k in K2_SWEEP}
+
+    def use(consts):
+        for k, v in consts.items():
+            setattr(bwd, k, v)
+
+    try:
+        for label, K, n, W, D, reps in K2_CASES:
+            if label not in K2_SWEEP_CASES:
+                continue
+            args = backward_case(torch, gen, K, n, W, D, dev)
+            ref = bwd.backward_scans(*args)
+            plans = {}
+            for values in itertools.product(*K2_SWEEP.values()):
+                consts = dict(zip(K2_SWEEP, values))
+                use(consts)
+                try:
+                    plans.setdefault(bwd.backward_plan(K, W, D, "stream"), consts)
+                except ValueError:
+                    continue
+            use(saved)
+            chosen = bwd.backward_plan(K, W, D, "stream")
+            calls = {}
+            for plan, consts in plans.items():
+                use(consts)
+                got = bwd.fused_backward_cuda(*args, route="stream")
+                torch.cuda.synchronize()
+                if not all(torch.equal(r, g) for r, g in zip(ref, got)):
+                    raise AssertionError(f"K2 {label} disagrees with its plain version "
+                                         f"under {consts}")
+                calls[plan] = (lambda consts=consts: (
+                    use(consts), bwd.fused_backward_cuda(*args, route="stream")))
+            ms = {p_: [] for p_ in calls}
+            for p_ in list(calls) + list(calls)[::-1]:
+                ms[p_].append(time_ms(torch, calls[p_], reps))
+            use(saved)
+            mean = {p_: sum(v) / len(v) for p_, v in ms.items()}
+            fields = lambda p_: {"block": p_.block, "depth": p_.depth, "cluster": p_.cluster,
+                                 "unroll": p_.unroll, "threads": p_.threads}
+            log(json.dumps({"phase": "sweep_k2", "case": label, "shape": [K, n, W, D],
+                            "planner": fields(chosen), "planner_ms": mean[chosen],
+                            "planner_ms_turns": ms[chosen],
+                            "plans": [{**fields(p_), **plans[p_], "ms": mean[p_],
+                                       "ms_turns": ms[p_]}
+                                      for p_ in sorted(mean, key=mean.get)]}))
+    finally:
+        use(saved)
 
 
 def phase_compile(torch, dev, n=N_ITEMS, K=K_LANES, W=WIDTH):
@@ -1185,6 +1277,57 @@ def phase_tsptw_solve(torch, dev, n=TSPTW_SMALL_N, W=WIDTH, batch=16):
                     "time_to_optimum_s": sol.duration, "width": W, "batch": batch}))
 
 
+def phase_tsptw_search(torch, dev, n=TSPTW_N, W=WIDTH, batch=K_LANES,
+                       budget=TSPTW_SEARCH_S):
+    """Phase 17: `SequentialSolver.maximize` on phase 9's 61-node instance
+    at W=256, 128 lanes a superstep, the cache and the dominance store,
+    stopped by a time budget: the search's first supersteps compile a
+    lane or a few, the later ones up to 128, so K2's planner spreads
+    their lanes over clusters of CTAs.  Logs the lanes of each compile
+    (under a budget the solver compiles a superstep's restricted and
+    relaxed passes apart, polling the budget every 32 layers, so the last
+    may stop before its sweep) and K2's launches by cluster size; the
+    best tour replays within every window at its value, and the bounds
+    bracket it."""
+    import ddo_tpu_torch as tt
+    from ddo_tpu_torch.engine import backward as bwd
+    from ddo_tpu_torch.models import tsptw as ts
+
+    pb = ts.generate_random(n, SEED, window=TSPTW_WINDOW)
+    bundle = tt.ModelBundle(pb, ts.TsptwRelax(pb), ts.TsptwRanking())
+    solver = tt.SequentialSolver(
+        bundle, width_heu=tt.TsptwWidth(n), buffer_width=W, batch=batch,
+        cache=tt.SimpleCache(), cutoff=tt.TimeBudget(budget), device=dev,
+        dominance=tt.SimpleDominanceChecker(ts.TsptwDominance(), n))
+    lanes, compile_batch = [], solver.compiler.compile_batch
+
+    def recorded(comp_type, subs, *a, **kw):
+        lanes.append(len(subs))
+        return compile_batch(comp_type, subs, *a, **kw)
+
+    solver.compiler.compile_batch = recorded
+    before = dict(bwd.CLUSTER_LAUNCHES), bwd.KERNEL_LAUNCHES
+    t0 = time.perf_counter()
+    completion = solver.maximize()
+    wall = time.perf_counter() - t0
+    clusters = {c: m - before[0][c] for c, m in bwd.CLUSTER_LAUNCHES.items()}
+    calls = bwd.KERNEL_LAUNCHES - before[1]
+    value, (vals, pset) = solver.best_value(), solver.best_solution()
+    if value is None or -replay_tour(pb, vals, pset) != value:
+        raise AssertionError("tsptw search: the best tour does not cost its value")
+    if not solver.best_lower_bound() <= solver.best_upper_bound() or completion.is_exact:
+        raise AssertionError("tsptw search: the bounds do not bracket an open search")
+    if sum(clusters.values()) != calls or clusters[1] == calls:
+        raise AssertionError(f"tsptw search: K2 took no cluster, or another route: "
+                             f"{clusters} of {calls} launches")
+    log(json.dumps({"phase": "tsptw_search", "n": n, "width": W, "batch": batch,
+                    "budget_s": budget, "wall_s": wall, "supersteps": solver.stats.supersteps,
+                    "lanes_per_compile": lanes, "best_value": value,
+                    "upper_bound": solver.best_upper_bound(),
+                    "fused_backward_launches": calls, "stream_clusters": clusters,
+                    "clustered_share": 1 - clusters[1] / calls}))
+
+
 # ------------------------------------------- sop, srflp, lcs, psp, alp
 def sop_brute(dist):
     """The cheapest job order 0 -> ... -> n-1 honouring the -1 precedences
@@ -1598,6 +1741,9 @@ def main(argv):
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout (a parent commit unpacked with git archive) "
                          "whose K1 and K2 phase 2 times in turns beside this one's")
+    ap.add_argument("--sweep-k2", action="store_true",
+                    help="after the build, time K2's stream route under other values of its "
+                         "planner's constants, then stop")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1632,6 +1778,9 @@ def main(argv):
                     "planner": bwd.CLUSTERS_RESIDENT}))
     if any(held[c] < n for c, n in bwd.CLUSTERS_RESIDENT.items()):
         raise AssertionError(f"the card holds fewer clusters than K2's planner assumes: {held}")
+    if opts.sweep_k2:
+        sweep_k2(torch, dev)
+        return 0
 
     # ---- 2. kernels against their plain versions
     import ddo_tpu_torch as tt
@@ -1661,11 +1810,13 @@ def main(argv):
         srt.ROUTE_LAUNCHES.update({r: 0 for r in srt.ROUTE_LAUNCHES})
         bwd.KERNEL_LAUNCHES = 0
         bwd.ROUTE_LAUNCHES.update({r: 0 for r in bwd.ROUTE_LAUNCHES})
+        bwd.CLUSTER_LAUNCHES.update({c: 0 for c in bwd.CLUSTER_LAUNCHES})
 
     def read():
         return ({"lane_sort": srt.KERNEL_LAUNCHES, "fused_backward": bwd.KERNEL_LAUNCHES},
                 {"lane_sort": dict(srt.ROUTE_LAUNCHES),
-                 "fused_backward": dict(bwd.ROUTE_LAUNCHES)})
+                 "fused_backward": dict(bwd.ROUTE_LAUNCHES),
+                 "stream_clusters": dict(bwd.CLUSTER_LAUNCHES)})
 
     def counted(path, drive):
         """Drive one path between a reset and a read of the counts; a
@@ -1698,6 +1849,7 @@ def main(argv):
     counted("max2sat", lambda: phase_small_solve(torch, dev, "max2sat"))
     counted("mcp", lambda: phase_small_solve(torch, dev, "mcp"))
     counted("tsptw", tsptw)
+    counted("tsptw_search", lambda: phase_tsptw_search(torch, dev))
     for name, spec in models.items():
         counted(name, lambda: phase_small_model(torch, dev, name, spec))
     counted("device_loop", lambda: phase_device_loop(torch, dev, reset, read))
@@ -1726,7 +1878,7 @@ def main(argv):
     kernels = []
     paths = [("knapsack", "sort1", "main"), ("misp", "misp_sort1", "misp"),
              ("max2sat", "small_sort1", "small"), ("mcp", "small_sort1", "small"),
-             ("tsptw", "tsptw_sort1", "tsptw")]
+             ("tsptw", "tsptw_sort1", "tsptw"), ("tsptw_search", "tsptw_sort1", "tsptw_1lane")]
     paths += [(name, f"{name}_sort1", "small_models") for name in models]
     paths += [("device_loop", "slab_pop", "dl_misp60"), ("native", "native_kp_sort1", "native_kp"),
               ("cli", "cli_kp_sort1", "cli_kp"), ("wide", "max2sat135_w256", "wide_max2sat")]

@@ -648,8 +648,9 @@ static cudaError_t allow_smem(const void* kernel, size_t smem) {
 // `plan` (engine/backward.py `BackwardPlan.ints`) holds the route (0
 // direct, 1 tma, 2 stream), its block (tma: layers per ring block;
 // stream: node slots per chunk), the ring depth, the cluster size, the
-// group size, the threads per CTA, then a ring slot's RING_ROWS plane
-// offsets and its size in bytes.  Returns 0 or a CUDA error code.
+// group size, the unroll (stream: node passes in flight, 1, 2, 4 or 8),
+// the threads per CTA, then a ring slot's RING_ROWS plane offsets and its
+// size in bytes.  Returns 0 or a CUDA error code.
 extern "C" int fused_backward(const int64_t* ptrs, const int* plan, int K, int n, int W, int D,
                               void* stream) {
   BwdArgs a;
@@ -672,10 +673,10 @@ extern "C" int fused_backward(const int64_t* ptrs, const int* plan, int K, int n
   a.th_out = reinterpret_cast<int*>(ptrs[16]);
   a.hs_out = reinterpret_cast<uint8_t*>(ptrs[17]);
   const int route = plan[0], block = plan[1], depth = plan[2], cluster = plan[3],
-            group = plan[4], threads = plan[5];
+            group = plan[4], unroll = plan[5], threads = plan[6];
   Ring g;
-  for (int i = 0; i < RING_ROWS; ++i) g.off[i] = plan[6 + i];
-  g.bytes = plan[6 + RING_ROWS];
+  for (int i = 0; i < RING_ROWS; ++i) g.off[i] = plan[7 + i];
+  g.bytes = plan[7 + RING_ROWS];
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (route == 0) {
@@ -695,17 +696,13 @@ extern "C" int fused_backward(const int64_t* ptrs, const int* plan, int K, int n
   if (route != 2) return cudaErrorInvalidValue;
   const size_t smem =
       ((12 * (size_t)depth + 31) & ~(size_t)15) + (size_t)16 * W + (size_t)depth * g.bytes;
-  // passes of a warp's nodes in flight at once: up to 8, or 4 past 512
-  // threads, where a thread may hold no more than 64 registers
-  const int warps = threads / 32, nodes = (block + warps - 1) / warps;
-  const int passes = (nodes * group + 31) / 32;
-  void (*kernel)(BwdArgs, Ring, int, int, int, int, int, int) = backward_stream_kernel<1>;
-  if (passes >= 8 && threads <= 512)
-    kernel = backward_stream_kernel<8>;
-  else if (passes >= 4)
-    kernel = backward_stream_kernel<4>;
-  else if (passes >= 2)
-    kernel = backward_stream_kernel<2>;
+  void (*kernel)(BwdArgs, Ring, int, int, int, int, int, int) =
+      unroll == 1   ? backward_stream_kernel<1>
+      : unroll == 2 ? backward_stream_kernel<2>
+      : unroll == 4 ? backward_stream_kernel<4>
+      : unroll == 8 ? backward_stream_kernel<8>
+                    : nullptr;
+  if (!kernel || (unroll == 8 && threads > 512)) return cudaErrorInvalidValue;
   err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   if (cluster > 8) {

@@ -119,31 +119,41 @@ def backward_scans(E_child, E_cost, E_valid, S_val, S_rub, cutflag, S_exact,
 #: layers per block of the "tma" route's ring, most first
 BLOCK_LAYERS = (16, 8, 4, 2, 1)
 #: the "stream" route: ring slots, at least where they fit (fewer, larger
-#: chunks cost less per layer) and at most; warps per CTA, at most
+#: chunks cost less per layer) and at most; warps per CTA, at most, and
+#: passes over its nodes a warp makes per chunk, at least (chip_smoke.py
+#: --sweep-k2 times other values)
 STREAM_MIN_DEPTH = 3
 STREAM_MAX_DEPTH = 32
 STREAM_WARPS = 16
+STREAM_PASSES = 2
 #: clusters of c CTAs (a power of two up to 16; past 8 a non-portable
 #: size) an H100 SXM holds at once at one CTA per SM, as
 #: `cudaOccupancyMaxActiveClusters` reports for a "stream" CTA at the most
 #: shared memory it takes (chip_smoke.py checks it on the card): lanes
 #: past it would wait for a second wave, so the planner keeps K within it
-CLUSTERS_RESIDENT = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+CLUSTERS_RESIDENT = {1: cuda_build.SM_COUNT, 2: 66, 4: 30, 8: 15, 16: 7}
 MAX_CLUSTER = max(CLUSTERS_RESIDENT)
+#: launches of the "stream" route by CTAs per lane since import
+CLUSTER_LAUNCHES = {c: 0 for c in CLUSTERS_RESIDENT}
+#: the "stream" route's node passes a warp keeps in flight at once
+#: (csrc/backward.cu's instances of `backward_stream_kernel`)
+UNROLLS = (1, 2, 4, 8)
 
 
 class BackwardPlan(NamedTuple):
     """How K2 sweeps a shape.  `block`: layers per ring block ("tma") or
     node slots per chunk ("stream"); `depth`: ring slots; `cluster`: CTAs
-    per lane; `group`: lanes that reduce one node's edges ("stream");
-    `layout`: a ring slot's byte offset of each of the 11 planes, in the
-    order of csrc/backward.cu's LayerRows, then the slot's size; `smem`:
-    the shared memory of one CTA."""
+    per lane; `group`: lanes that reduce one node's edges and `unroll`:
+    node passes a warp keeps in flight ("stream"); `layout`: a ring
+    slot's byte offset of each of the 11 planes, in the order of
+    csrc/backward.cu's LayerRows, then the slot's size; `smem`: the shared
+    memory of one CTA."""
     route: str
     block: int
     depth: int
     cluster: int
     group: int
+    unroll: int
     threads: int
     layout: tuple
     smem: int
@@ -151,7 +161,7 @@ class BackwardPlan(NamedTuple):
     def ints(self):
         """The plan as csrc/backward.cu's `fused_backward` reads it."""
         return [ROUTES.index(self.route), self.block, self.depth, self.cluster,
-                self.group, self.threads, *self.layout]
+                self.group, self.unroll, self.threads, *self.layout]
 
 
 def _plane_bytes(slots, D):
@@ -174,7 +184,7 @@ def _tma_plan(W, D):
         layout = _layout([B * r for r in _plane_bytes(W, D)])
         smem = 16 * W + 2 * layout[-1] + 16
         if smem <= cuda_build.SMEM_PER_BLOCK:
-            return BackwardPlan("tma", B, 2, 1, 1, _threads(W), layout, smem)
+            return BackwardPlan("tma", B, 2, 1, 1, 1, _threads(W), layout, smem)
     return None
 
 
@@ -197,10 +207,12 @@ def _ring(W, D, S):
     return layout, R, smem(R)
 
 
-def _stream_plan(W, D, c):
+def _stream_plan(W, D, c, unroll=None):
     """Chunks of S node slots, S the largest multiple of 16 dividing the
     CTA's W / c (up to 32 a warp) whose ring holds STREAM_MIN_DEPTH
-    chunks, else 16; None when not even two chunks of 16 fit."""
+    chunks, else 16; None when not even two chunks of 16 fit.  A warp
+    keeps as many of its node passes in flight as it has, up to 8,
+    unless `unroll` says how many."""
     Wc = W // c
     sizes = [S for S in range(16, min(Wc, 32 * STREAM_WARPS) + 1, 16) if Wc % S == 0]
     S = max([S for S in sizes if _ring(W, D, S)[1] >= STREAM_MIN_DEPTH], default=16)
@@ -208,38 +220,49 @@ def _stream_plan(W, D, c):
     if R < 2:
         return None
     G = min(32, 1 << max(0, D - 1).bit_length())
-    # two passes of nodes a warp, at least, and a warp's nodes in its lanes
-    warps = min(STREAM_WARPS, max(-(-S * G // 64), -(-S // 32)))
-    return BackwardPlan("stream", S, R, c, G, 32 * warps, layout, smem)
+    # STREAM_PASSES passes of nodes a warp, at least, and a warp's nodes
+    # in its lanes
+    warps = min(STREAM_WARPS, max(-(-S * G // (32 * STREAM_PASSES)), -(-S // 32)))
+    nodes = -(-S // warps)  # a warp's nodes of a chunk
+    passes = -(-nodes * G // 32)
+    if unroll is None:
+        unroll = max(u for u in UNROLLS if u <= passes)
+    elif unroll not in UNROLLS:
+        raise ValueError(f"fused_backward: no unroll of {unroll}")
+    return BackwardPlan("stream", S, R, c, G, unroll, 32 * warps, layout, smem)
 
 
 def backward_plan(K: int, W: int, D: int, route: str | None = None,
-                  cluster: int | None = None) -> BackwardPlan:
+                  cluster: int | None = None, unroll: int | None = None) -> BackwardPlan:
     """K2's route for K lanes of node width W with D out-edges per node.
 
     A bulk copy needs rows that are 16-byte multiples, so W % 16 != 0
     takes "direct".  Otherwise "tma" where two blocks of one layer fit
     shared memory beside the 16*W bytes of carries (low branching), and
     "stream" where they do not (high branching, very wide layers), or
-    "direct" where not even two chunks of 16 node slots fit.  `route` and
-    `cluster` (the "stream" route's CTAs per lane) force a choice, so that
-    a comparison can run several on one shape; a route that cannot take
-    the shape raises, as do carries past one block's shared memory."""
+    "direct" where not even two chunks of 16 node slots fit.  `route`,
+    and the "stream" route's `cluster` (CTAs per lane) and `unroll`, force
+    a choice, so that a comparison can run several on one shape; a route
+    that cannot take the shape raises, as do carries past one block's
+    shared memory."""
     carries = 16 * W
     if carries > cuda_build.SMEM_PER_BLOCK:
         raise ValueError(f"fused_backward: W={W} carries exceed the shared memory of "
                          "one block")
-    if cluster is not None:
+    if cluster is not None or unroll is not None:
         if route not in (None, "stream"):
-            raise ValueError("fused_backward: only the stream route takes a cluster")
+            raise ValueError("fused_backward: only the stream route takes a cluster "
+                             "or an unroll")
         route = "stream"
+    if cluster is not None:
         if cluster not in [1 << i for i in range(MAX_CLUSTER.bit_length())] \
                 or W % (16 * cluster):
             raise ValueError(f"fused_backward: no cluster of {cluster} CTAs at W={W}")
-    plans = {"direct": BackwardPlan("direct", 0, 0, 1, 1, _threads(W), (0,) * 12, carries)}
+    plans = {"direct": BackwardPlan("direct", 0, 0, 1, 1, 1, _threads(W), (0,) * 12,
+                                    carries)}
     if W % 16 == 0:
         plans["tma"] = _tma_plan(W, D)
-        plans["stream"] = _stream_plan(W, D, cluster or _stream_cluster(K, W))
+        plans["stream"] = _stream_plan(W, D, cluster or _stream_cluster(K, W), unroll)
     if route is None:
         route = next(r for r in ("tma", "stream", "direct") if plans.get(r))
     if route not in ROUTES:
@@ -272,10 +295,11 @@ def resident_clusters(c, smem, threads):
 def fused_backward_cuda(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
                         S_exact, S_mask, vb_init, th_init, best_known,
                         ep_theta=None, wl_pruned=None, wl_ptheta=None,
-                        route=None, cluster=None):
+                        route=None, cluster=None, unroll=None):
     """Kernel K2 on CUDA tensors; raises on what the kernel does not take.
-    `route` and `cluster` force `backward_plan`'s choice.  Planes off a
-    16-byte boundary take "direct", which reads them in place."""
+    `route`, `cluster` and `unroll` force `backward_plan`'s choice.
+    Planes off a 16-byte boundary take "direct", which reads them in
+    place."""
     global KERNEL_LAUNCHES
     ep_theta, wl_pruned, wl_ptheta = _filter_defaults(S_val, ep_theta, wl_pruned,
                                                       wl_ptheta)
@@ -303,9 +327,9 @@ def fused_backward_cuda(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
                              f"got {t.dtype} {list(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"fused_backward: {name} must be contiguous")
-    plan = backward_plan(K, W, C // W, route, cluster)
+    plan = backward_plan(K, W, C // W, route, cluster, unroll)
     if plan.route != "direct" and any(t.data_ptr() % 16 for _, t, _, _ in spec[:11]):
-        if route or cluster:
+        if route or cluster or unroll:
             raise ValueError(f"fused_backward: the {plan.route} route needs 16-byte "
                              "aligned planes")
         plan = backward_plan(K, W, C // W, "direct")
@@ -325,6 +349,8 @@ def fused_backward_cuda(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
         cuda_build.check(status, f"fused_backward ({plan.route})")
         KERNEL_LAUNCHES += 1
         ROUTE_LAUNCHES[plan.route] += 1
+        if plan.route == "stream":
+            CLUSTER_LAUNCHES[plan.cluster] += 1
     return vb, mk.view(torch.bool), th, hs.view(torch.bool)
 
 

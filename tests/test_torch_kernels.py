@@ -362,17 +362,25 @@ def test_lane_sort_merge_tile_boundaries_on_card(L, C, nk):
 
 def _backward_on_card(K, n, W, D, seed, filters=True, **force):
     """K2 against `backward_scans` on the card, bit for bit; returns the
-    route it launched on (one launch, counted once, on that route)."""
+    route it launched on (one launch, counted once, on that route and, on
+    "stream", once at its plan's cluster size)."""
     _card()
     args, bk, extras = random_case(np.random.default_rng(seed), n, W, D, K)
     t = [torch.from_numpy(a).cuda() for a in args + [bk] + (extras if filters else [])]
     ref = tbwd.backward_scans(*t)
     before, by_route = tbwd.KERNEL_LAUNCHES, dict(tbwd.ROUTE_LAUNCHES)
+    by_cluster = dict(tbwd.CLUSTER_LAUNCHES)
     got = tbwd.fused_backward_cuda(*t, **force)
     torch.cuda.synchronize()
     assert tbwd.KERNEL_LAUNCHES == before + 1
     taken = [r for r in tbwd.ROUTES if tbwd.ROUTE_LAUNCHES[r] != by_route[r]]
     assert len(taken) == 1 and tbwd.ROUTE_LAUNCHES[taken[0]] == by_route[taken[0]] + 1
+    clusters = {c: m - by_cluster[c] for c, m in tbwd.CLUSTER_LAUNCHES.items()
+                if m != by_cluster[c]}
+    if taken[0] == "stream":
+        assert clusters == {tbwd.backward_plan(K, W, D, **force).cluster: 1}
+    else:
+        assert not clusters
     for r, g, name in zip(ref, got, NAMES):
         assert torch.equal(r, g), name
     return taken[0]
@@ -420,6 +428,21 @@ def test_fused_backward_stream_on_card(K, n, W, D, cluster, filters):
     assert route == "stream"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll", [1, 2, 4, 8])
+@pytest.mark.parametrize("K,n,W,D,cluster", [
+    (3, 4, 256, 61, 1),     # TSPTW N60's D: a warp per node
+    (1, 3, 256, 380, 16),   # SOP with 380 jobs in a cluster of 16
+    (2, 3, 256, 9, 1),      # groups of 16 lanes
+])
+def test_fused_backward_stream_unroll_on_card(K, n, W, D, cluster, unroll):
+    """Every instance of the "stream" kernel (node passes in flight; with
+    a warp per node and more than one pass, the reduce-scatter) at shapes
+    where the planner picks another, against `backward_scans`."""
+    route = _backward_on_card(K, n, W, D, 11 * K + n + unroll, cluster=cluster, unroll=unroll)
+    assert route == "stream"
+
+
 @pytest.mark.parametrize("K,W,D,route,block,cluster", [
     (128, 256, 2, "tma", 8, 1), (1, 16, 1, "tma", 16, 1), (4, 64, 3, "tma", 16, 1),
     (128, 2048, 2, "tma", 1, 1), (16, 8, 2, "direct", 0, 1), (3, 7, 1, "direct", 0, 1),
@@ -454,15 +477,23 @@ def test_backward_plan(K, W, D, route, block, cluster):
     if route == "stream":
         S, R, c, G = plan.block, plan.depth, plan.cluster, plan.group
         assert S % 16 == 0 and W % (S * c) == 0
-        assert c & (c - 1) == 0 and c <= tbwd.MAX_CLUSTER and K * c <= 132
+        assert c & (c - 1) == 0 and c <= tbwd.MAX_CLUSTER
+        assert K * c <= tbwd.cuda_build.SM_COUNT
         assert R >= tbwd.STREAM_MIN_DEPTH or S == 16
         assert sizes == [4 * S * D] * 2 + [4 * S] * 4 + [S * D] + [S] * 4
         assert R >= 2 and plan.smem == (12 * R + 31) // 16 * 16 + 16 * W + R * plan.layout[-1]
         assert G == min(32, 1 << (D - 1).bit_length())
-        assert -(-S // (plan.threads // 32)) <= 32  # a warp's nodes fit its lanes
+        nodes = -(-S // (plan.threads // 32))
+        assert nodes <= 32  # a warp's nodes fit its lanes
+        # as many node passes in flight as a warp has, up to 8
+        passes = -(-nodes * G // 32)
+        assert plan.unroll in tbwd.UNROLLS and plan.unroll <= max(1, passes)
+        assert 2 * plan.unroll > min(passes, 8)
+    else:
+        assert plan.unroll == 1
     if route != "direct":
         assert all(o % 16 == 0 for o in plan.layout) and all(b % 16 == 0 for b in sizes)
-    assert plan.ints()[0] == tbwd.ROUTES.index(route) and len(plan.ints()) == 18
+    assert plan.ints()[0] == tbwd.ROUTES.index(route) and len(plan.ints()) == 19
 
 
 def test_backward_plan_forced_routes():
@@ -481,8 +512,15 @@ def test_backward_plan_forced_routes():
         tbwd.backward_plan(4, 256, 61, cluster=3)
     with pytest.raises(ValueError, match="no cluster"):
         tbwd.backward_plan(4, 256, 61, cluster=32)
+    assert tbwd.backward_plan(128, 256, 61).unroll == 8
+    assert tbwd.backward_plan(128, 256, 61, unroll=1).unroll == 1
+    assert tbwd.backward_plan(128, 256, 2, unroll=2).route == "stream"
     with pytest.raises(ValueError, match="only the stream route"):
         tbwd.backward_plan(4, 256, 61, "tma", cluster=2)
+    with pytest.raises(ValueError, match="only the stream route"):
+        tbwd.backward_plan(4, 256, 61, "direct", unroll=1)
+    with pytest.raises(ValueError, match="no unroll"):
+        tbwd.backward_plan(4, 256, 61, unroll=3)
     with pytest.raises(ValueError, match="no route"):
         tbwd.backward_plan(4, 256, 61, "radix")
     with pytest.raises(ValueError, match="shared memory"):
