@@ -15,11 +15,12 @@ Phases, each printing its own line(s):
      lanes x 15,616 rows, SOP with 380 jobs in one lane of 97,280 rows, 39
      keys, SRFLP n=60 with 70 operands, LCS with 10 strings x 20 letters,
      those four on the "merge" route, phase 16's sorts past 128 operands
-     (141 and 226), and the small models' sorts; K2: 128 lanes x 2000
-     layers x W=256 x D=2, one lane, the MISP compile's 200 layers, the
-     max2sat and max-cut sweeps, the TSPTW compile's 61 layers x W=256 x
-     D=61, phase 16's and the small models' sweeps) and at each route's
-     boundaries (K1 at 32, 64 and 2048 rows; "perm" at 12 keys over 1,024
+     (141 and 226), the small models', the mesh's 64-lane MISP shards'
+     and the tutorial's sorts; K2: 128 lanes x 2000 layers x W=256 x
+     D=2, one lane, the MISP compile's 200 layers, the max2sat and
+     max-cut sweeps, the TSPTW compile's 61 layers x W=256 x D=61, phase
+     16's, the small models', the mesh shards' and the tutorial's
+     sweeps) and at each route's boundaries (K1 at 32, 64 and 2048 rows; "perm" at 12 keys over 1,024
      rows and one more; keys that tie on the 12 words a record carries
      and differ later; "merge" at 1 row, at 1,023 to 1,025 rows, at its
      tile and window boundaries, at 50,000 rows, and with every key in
@@ -106,6 +107,21 @@ Phases, each printing its own line(s):
      lanes a superstep, cache and dominance on, for 20 s: the lanes of
      each compile, K2's launches by cluster size (its first supersteps
      compile few lanes, spread over clusters), the best tour replayed;
+ 18. the mesh (`ddo_tpu_torch.parallel.mesh`): phase 4's knapsack at
+     W=256, 128 lanes a superstep, cache and dominance, by
+     `SequentialSolver`, by `MeshSolver` on `make_mesh()` (the card) and
+     on `make_mesh([card, card])` (two entries of one card, so the lanes
+     split in two shards), in turns: each at the DP optimum, gap 0, with equal
+     explored and expanded counts, its wall and its K1 and K2 launches
+     by route; MISP G(60, 0.2) at W=256 and 128 lanes on the two-entry
+     mesh (64-lane shards, each with its own dynamic order) against
+     `exact_mis` and `SequentialSolver`'s counts; `MeshCompiler` on 3
+     lanes rooted at depths 0, 7 and 20 of a 60-item knapsack on the
+     two-entry mesh, its real lanes' planes and reductions equal to
+     `DDCompiler`'s on the card bit for bit;
+ 19. the custom-model tutorial (examples/tutorial_custom_problem_torch.py,
+     weighted interval scheduling, 14 jobs): its `main(device)` on the
+     card at brute force's optimum, gap 0, with its Graphviz export;
 then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Every check raises on failure, so the script exits non-zero and prints no
 result; without CUDA it exits non-zero at once.  Each path has launch
@@ -113,8 +129,8 @@ counts of its own, zeroed just before the path and read just after it:
 knapsack (phases 3-4), MISP (6-7), max2sat and max-cut (8, one count
 each), TSPTW (9-10), tsptw_search (17), sop, srflp, lcs, psp and alp
 (11, one count each), device_loop (13: the device loop's own runs, each
-zeroed just before it and read just after), native (14), cli (15) and
-wide (16); both kernels must have launched in each, and each kernel's
+zeroed just before it and read just after), native (14), cli (15),
+wide (16), mesh (18) and tutorial (19); both kernels must have launched in each, and each kernel's
 count is also kept by route (K2's "stream" route's also by cluster
 size).  Phases 5 and 12 are in no count.
 
@@ -163,6 +179,10 @@ NATIVE_KP, NATIVE_W, NATIVE_BATCH = (200, 1000, 50, 100, 2), 16, 16
 # the CLI (phase 15): a knapsack generate_uncorrelated(50, 1000, 1, 100, seed=1)
 # at the CLI's defaults (width 2, 4 lanes: an 8-slot buffer)
 CLI_KP, CLI_W, CLI_BATCH = (50, 1000, 1, 100, 1), 8, 4
+# the tutorial (phase 19): weighted interval scheduling, 14 jobs, FixedWidth(4)
+# (an 8-slot buffer), batch 4; its search closes in one superstep of one lane
+TUTORIAL = "examples/tutorial_custom_problem_torch.py"
+TUTORIAL_N, TUTORIAL_W, TUTORIAL_LANES = 14, 8, 1
 
 # An H100 SXM's peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and the
 # int32 rate of 64 INT32 lanes per SM x 132 SMs x 1.98 GHz, the boost clock
@@ -382,7 +402,8 @@ def tree_kernels(root):
     e.g. a parent commit unpacked with `git archive`, built from that
     checkout's own `csrc/` into its own `build/` (one nvcc per source,
     started together), beside this checkout's, so that phase 2 can time
-    both in turns."""
+    both in turns.  A checkout whose K2 counts no launches by route is
+    refused."""
     import importlib.util
     import os
 
@@ -395,6 +416,11 @@ def tree_kernels(root):
     cb = load("parent_cuda_build", "ddo_tpu_torch/utils/cuda_build.py")
     srt = load("parent_sort", "ddo_tpu_torch/ops/sort.py")
     bwd = load("parent_backward", "ddo_tpu_torch/engine/backward.py")
+    if not hasattr(bwd, "ROUTE_LAUNCHES"):
+        raise RuntimeError(
+            f"--parent {root}: its K2 wrapper (ddo_tpu_torch/engine/backward.py) counts "
+            "no launches by route (ROUTE_LAUNCHES), which phase 2 reads to name the "
+            "route the parent takes; only a tree that has them can be timed here")
     srt.cuda_build = bwd.cuda_build = cb
     cb.build("lane_sort", "backward")
     return srt, bwd
@@ -402,18 +428,11 @@ def tree_kernels(root):
 
 def parent_backward_route(parent_bwd, args):
     """The route the parent's K2 takes on `args`, read from its launch
-    counts by route around one call.  A parent whose K2 counts its
-    launches only in all (a tree from before the "stream" route) has a
-    `backward_plan(W, D)` that returns (layers per block, layout), 0
-    layers meaning "direct"; this fallback can go once no such tree is
-    timed."""
-    counts = getattr(parent_bwd, "ROUTE_LAUNCHES", None)
-    if counts is None:
-        W, C = args[3].shape[2], args[0].shape[2]
-        return "tma" if parent_bwd.backward_plan(W, C // W)[0] else "direct"
-    before = dict(counts)
+    counts by route around one call."""
+    before = dict(parent_bwd.ROUTE_LAUNCHES)
     parent_bwd.fused_backward_cuda(*args)
-    return next(r for r in counts if counts[r] != before[r])
+    return next(r for r in parent_bwd.ROUTE_LAUNCHES
+                if parent_bwd.ROUTE_LAUNCHES[r] != before[r])
 
 
 def phase_kernels(torch, dev, extra_k1=(), parent=None):
@@ -511,6 +530,10 @@ K2_CASES = [
     ("dl_misp60", K_LANES, DL_N, WIDTH, 2, 20),
     ("native_kp", NATIVE_BATCH, NATIVE_KP[0], NATIVE_W, 2, 50),
     ("cli_kp", CLI_BATCH, CLI_KP[0], CLI_W, 2, 50),
+    # the mesh's MISP shards (phase 18: 128 lanes over two entries) and the
+    # tutorial's sweep (phase 19)
+    ("mesh_misp60", K_LANES // 2, DL_N, WIDTH, 2, 20),
+    ("tutorial", TUTORIAL_LANES, TUTORIAL_N, TUTORIAL_W, 2, 50),
     # phase 16's max2sat at 135 variables, W=256
     ("wide_max2sat", 4, WIDE_N, WIDTH, 2, 20),
     ("layers_3", K_LANES, 3, WIDTH, 2, 50),
@@ -640,6 +663,25 @@ def sweep_k2(torch, dev):
         use(saved)
 
 
+def knapsack_depth_lanes(tt):
+    """A 60-item knapsack's bundle and 3 lanes rooted at depths 0, 7 and 20
+    (the deeper two at half the capacity)."""
+    import numpy as np
+
+    from ddo_tpu_torch.models import knapsack as kp
+
+    small = kp.generate_uncorrelated(60, 1000, 1, 20, SEED + 1)
+    root = tt.root_subproblem(small)
+    subs = [root]
+    for depth in (7, 20):
+        pset = np.zeros(small.nb_variables, bool)
+        pset[:depth] = True
+        state = {"capacity": np.asarray(small.capacity // 2, np.int32)}
+        subs.append(dataclasses.replace(root, state=state, value=100 * depth,
+                                        path_set=pset, depth=depth))
+    return tt.ModelBundle(small, kp.KPRelax(small), kp.KPRanking()), subs
+
+
 def phase_compile(torch, dev, n=N_ITEMS, K=K_LANES, W=WIDTH):
     """Phase 3: the real-size shape.  Restricted + relaxed compiles of K
     root lanes bracketing the DP optimum (bench.py's expansions/s), each
@@ -746,17 +788,9 @@ def phase_compile(torch, dev, n=N_ITEMS, K=K_LANES, W=WIDTH):
     # the whole engine on the device against the CPU path (which the CPU
     # tests hold against ddo_tpu), every plane, on a small instance with
     # lanes rooted at different depths
-    small = kp.generate_uncorrelated(60, 1000, 1, 20, SEED + 1)
-    sb = tt.ModelBundle(small, kp.KPRelax(small), kp.KPRanking())
+    sb, subs = knapsack_depth_lanes(tt)
+    subs = subs[:1] + subs  # the root twice
     dom = kp.KPDominance()
-    root = tt.root_subproblem(small)
-    subs = [root, root]
-    for depth in (7, 20):
-        pset = np.zeros(small.nb_variables, bool)
-        pset[:depth] = True
-        state = {"capacity": np.asarray(small.capacity // 2, np.int32)}
-        subs.append(dataclasses.replace(root, state=state, value=100 * depth,
-                                        path_set=pset, depth=depth))
     planes = {}
     for d in (dev, torch.device("cpu")):
         c = tt.DDCompiler(sb, 16, tt.FRONTIER, dominance=dom, device=d)
@@ -1732,6 +1766,148 @@ def phase_wide(torch, dev):
         log(json.dumps({**row, "sort_operands": n + 6, "lane_sort_routes": taken}))
 
 
+# ------------------------------------------- the mesh and the tutorial
+def solve_row(solver, wall, opt, before):
+    """A finished solve's JSON fields, with K1's and K2's launches by route
+    since `before` (a `route_counts()`); raises unless it proved `opt`."""
+    if solver.abort_proof is not None or solver.best_value() != opt or solver.gap() != 0:
+        raise AssertionError(f"{type(solver.compiler).__name__}: {solver.best_value()} "
+                             f"(gap {solver.gap()}) vs optimum {opt}")
+    after = route_counts()
+    return {"optimum": opt, "wall_s": wall, "lanes": solver.batch,
+            **solver_counts(solver),
+            "lane_sort_routes": {r: after[0][r] - before[0][r] for r in after[0]},
+            "fused_backward_routes": {r: after[1][r] - before[1][r] for r in after[1]}}
+
+
+def route_counts():
+    from ddo_tpu_torch.engine import backward as bwd
+    from ddo_tpu_torch.ops import sort as srt
+
+    return dict(srt.ROUTE_LAUNCHES), dict(bwd.ROUTE_LAUNCHES)
+
+
+def phase_mesh(torch, dev, meshes, n=N_ITEMS, W=WIDTH, batch=K_LANES):
+    """Phase 18: `MeshSolver` at full width.  Phase 4's knapsack (n=2000,
+    W=256, 128 lanes a superstep, cache and dominance) by
+    `SequentialSolver` and by `MeshSolver` on each of `meshes` (the card
+    alone, and two entries of the card, which splits the lanes), in
+    turns: each proves the DP optimum at gap 0 with the sequential
+    solver's explored and expanded counts.  Then MISP G(60, 0.2) at W=256
+    and 128 lanes on the last mesh (a dynamic order per shard) against
+    `exact_mis` and `SequentialSolver`, in turns; then
+    `MeshCompiler` on 3 lanes rooted at different depths of a smaller
+    knapsack, whose real lanes' planes equal `DDCompiler`'s on the card
+    bit for bit, with the same reductions."""
+    import ddo_tpu_torch as tt
+    from ddo_tpu_torch.models import knapsack as kp
+
+    def in_turns(model, bundle, opt, kw, meshes):
+        """`SequentialSolver` and a `MeshSolver` on each mesh, in turns
+        (a, b, ..., b, a), one line per solve and one with every wall; all
+        must take the same search."""
+        makers = [("sequential", None)] + [("mesh", m) for m in meshes]
+        rows, walls = [], {}
+        for label, mesh in makers + makers[::-1]:
+            before = route_counts()
+            solver = (tt.SequentialSolver(bundle, device=dev, **kw()) if mesh is None
+                      else tt.MeshSolver(bundle, mesh=mesh, **kw()))
+            t0 = time.perf_counter()
+            solver.maximize()
+            wall = time.perf_counter() - t0
+            key = label if mesh is None else f"mesh_{mesh.size}"
+            walls.setdefault(f"{key}_s", []).append(wall)
+            rows.append({"phase": "mesh", "model": model, "solver": label,
+                         "n": bundle.problem.nb_variables,
+                         "width": W, **({} if mesh is None else
+                                        {"mesh": [str(d) for d in mesh.devices]}),
+                         **solve_row(solver, wall, opt, before)})
+            log(json.dumps(rows[-1]))
+        keys = ("explored", "expanded", "supersteps", "best", "ub")
+        if len({tuple(r[k] for k in keys) for r in rows}) != 1:
+            raise AssertionError(f"mesh {model}: the solvers' searches differ: "
+                                 f"{[{k: r[k] for k in keys} for r in rows]}")
+        log(json.dumps({"phase": "mesh_turns", "model": model, **walls}))
+
+    pb = kp.generate_uncorrelated(n, 1000, 1, 100, SEED)
+    in_turns("knapsack", tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()),
+             kp.dp_optimum(pb.capacity, pb.profit, pb.weight),
+             lambda: dict(width_heu=tt.FixedWidth(W), cache=tt.SimpleCache(), batch=batch,
+                          dominance=tt.SimpleDominanceChecker(kp.KPDominance(), n)),
+             meshes)
+    mb, edges = misp_bundle(tt, DL_N, DL_P, SEED)
+    in_turns("misp", mb, exact_mis(DL_N, edges, [int(w) for w in mb.problem.weight]),
+             lambda: dict(width_heu=tt.FixedWidth(W), cache=tt.SimpleCache(), batch=batch),
+             meshes[-1:])
+
+    # 3 lanes rooted at depths 0, 7 and 20 (phase 3's fixture) on the mesh
+    # and on the card alone: every plane of the real lanes, bit for bit
+    sb, subs = knapsack_depth_lanes(tt)
+    dom = kp.KPDominance()
+    mc = tt.MeshCompiler(sb, W, tt.FRONTIER, meshes[-1], dominance=dom)
+    dc = tt.DDCompiler(sb, W, tt.FRONTIER, dominance=dom, device=dev)
+    planes = 0
+    for comp in (tt.CompilationType.RESTRICTED, tt.CompilationType.RELAXED):
+        got = mc.compile_batch(comp, subs, tt.NEG_INF, [3, 8, W])
+        want = dc.compile_batch(comp, subs, tt.NEG_INF, [3, 8, W])
+        if len(got) != len(subs) or got.dev["value"].shape[0] != mc.lanes * -(-len(subs)
+                                                                            // mc.lanes):
+            raise AssertionError(f"mesh compile_batch: {len(got)} views of "
+                                 f"{got.dev['value'].shape[0]} lanes")
+        for k, v in want.dev.items():
+            for a, b in zip(*(list(x.values()) if isinstance(x, dict) else [x]
+                              for x in (got.dev[k], v))):
+                if not torch.equal(a[:len(subs)], b):
+                    raise AssertionError(f"mesh compile_batch ({comp.name}): plane {k} "
+                                         f"differs from DDCompiler's")
+            planes += 1
+        if (got.global_best, got.total_expanded) != (want.global_best, want.total_expanded):
+            raise AssertionError(f"mesh compile_batch ({comp.name}): reductions "
+                                 f"{got.global_best, got.total_expanded} vs "
+                                 f"{want.global_best, want.total_expanded}")
+    log(json.dumps({"phase": "mesh_compile_vs_card", "n": sb.problem.nb_variables, "width": W,
+                    "mesh": [str(d) for d in meshes[-1].devices],
+                    "root_depths": [s.depth for s in subs], "planes": planes,
+                    "equal": True}))
+
+
+def load_tutorial():
+    """examples/tutorial_custom_problem_torch.py, loaded by path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), TUTORIAL)
+    spec = importlib.util.spec_from_file_location("tutorial_custom_problem_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tutorial_bundle(tt, tut):
+    pb = tut.IntervalScheduling(*tut.instance())
+    return tt.ModelBundle(pb, tut.IntervalRelax(pb), tut.IntervalRanking())
+
+
+def phase_tutorial(torch, dev, tut):
+    """Phase 19: the custom-model tutorial's `main(device)` on the card (its
+    printed lines captured): brute force's optimum at gap 0, and the
+    Graphviz export of a relaxed root DD."""
+    import contextlib
+    import io
+
+    start, end, profit = tut.instance()
+    opt = tut.brute_force(start.tolist(), end.tolist(), profit.tolist())
+    before = route_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        solver = tut.main(device=dev)
+    wall = time.perf_counter() - t0
+    row = solve_row(solver, wall, opt, before)
+    log(json.dumps({"phase": "tutorial", "source": TUTORIAL, "n": len(start), **row,
+                    "lines": out.getvalue().splitlines()}))
+
+
 def main(argv):
     import argparse
 
@@ -1798,10 +1974,16 @@ def main(argv):
         pb = kp.generate_uncorrelated(*args[:4], seed=args[4])
         extra.append(model_sort_case(name, tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()),
                                      kp.KPDominance(), W=W, L=L))
+    # the mesh's MISP shards of 64 lanes, and the tutorial's sort-1
+    extra.append(model_sort_case("mesh_misp60", misp_bundle(tt, DL_N, DL_P, SEED)[0], None,
+                                 W=WIDTH, L=K_LANES // 2))
+    tut = load_tutorial()
+    extra.append(model_sort_case("tutorial", tutorial_bundle(tt, tut), None, W=TUTORIAL_W,
+                                 L=TUTORIAL_LANES))
     parent = tree_kernels(opts.parent) if opts.parent else None
     rows = phase_kernels(torch, dev, extra, parent)
 
-    # ---- 3-11. each path with its own launch counts: zeroed just before
+    # ---- 3-19. each path with its own launch counts: zeroed just before
     # it, read just after, and both kernels must have launched in it
     launches = {}
 
@@ -1856,6 +2038,8 @@ def main(argv):
     counted("native", lambda: phase_native(torch, dev))
     counted("cli", lambda: phase_cli(torch, dev))
     counted("wide", lambda: phase_wide(torch, dev))
+    counted("mesh", lambda: phase_mesh(torch, dev, (tt.make_mesh(), tt.make_mesh([dev, dev]))))
+    counted("tutorial", lambda: phase_tutorial(torch, dev, tut))
 
     # the N20 class at W=256 (lanes of 5,376 candidates: sort-1 on the
     # merge route) and LCS with 10 strings over 20 letters, both in no
@@ -1881,7 +2065,9 @@ def main(argv):
              ("tsptw", "tsptw_sort1", "tsptw"), ("tsptw_search", "tsptw_sort1", "tsptw_1lane")]
     paths += [(name, f"{name}_sort1", "small_models") for name in models]
     paths += [("device_loop", "slab_pop", "dl_misp60"), ("native", "native_kp_sort1", "native_kp"),
-              ("cli", "cli_kp_sort1", "cli_kp"), ("wide", "max2sat135_w256", "wide_max2sat")]
+              ("cli", "cli_kp_sort1", "cli_kp"), ("wide", "max2sat135_w256", "wide_max2sat"),
+              ("mesh", "mesh_misp60_sort1", "mesh_misp60"),
+              ("tutorial", "tutorial_sort1", "tutorial")]
     for path, sort_case_, backward_case_ in paths:
         for name, src, replaces, main_case in [
             ("lane_sort", "ddo_tpu_torch/csrc/lane_sort.cu",

@@ -9,7 +9,8 @@ golomb, talentsched, tsptw, sop, srflp, lcs, psp, alp).  The two
 functions ddo_tpu wrote as Pallas kernels run as hand-written CUDA
 kernels on a GPU (K1, the per-lane multi-key sort in `ops/sort.py`; K2,
 the fused backward sweep in `engine/backward.py`) and as plain PyTorch on
-the CPU.
+the CPU.  `parallel.mesh` splits each superstep's lanes across a mesh of
+devices (`MeshSolver`).
 
 The solver alias matrix mirrors solver/mod.rs:29-47 for the solvers that
 exist.
@@ -62,6 +63,8 @@ from ddo_tpu_torch.search.solver import (
     SolverStats,
 )
 from ddo_tpu_torch.search.device_loop import DeviceLoopSolver
+from ddo_tpu_torch import parallel
+from ddo_tpu_torch.parallel.mesh import MeshCompiler, MeshSolver, make_mesh
 from ddo_tpu_torch.api import Solution, maximize
 from ddo_tpu_torch.models.sop import SopWidth
 from ddo_tpu_torch.models.srflp import SrflpWidth

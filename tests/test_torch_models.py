@@ -376,9 +376,8 @@ def test_too_many_sort_operands_raises_at_construction():
 
 def test_generators_and_exports():
     """The seeded generators give one instance per seed, and the package
-    exports what ddo_tpu's `__init__` does (the Pooled solver aliases and
-    the Times / DivBy width heuristics included), short of the modules
-    still to port."""
+    exports what ddo_tpu's `__init__` does (the Pooled solver aliases,
+    the Times / DivBy width heuristics and the mesh included)."""
     a, ea = tmi.generate_gnp(30, 0.2, seed=1)
     b, eb = tmi.generate_gnp(30, 0.2, seed=1)
     assert ea == eb and np.array_equal(a.comp_adj, b.comp_adj)
@@ -389,6 +388,6 @@ def test_generators_and_exports():
     assert g.nb_variables == 10 and all(w != 0 for _, _, w in edges)
     t = tta.generate_random(6, 3, seed=1)
     assert t.actor_mat.shape == (3, 6) and (t.actor_mat.sum(axis=1) > 0).all()
-    # every name ddo_tpu exports and the port has a module for
+    # every name ddo_tpu exports, the mesh's included
     missing = set(ddo_tpu.__all__) - set(tt.__all__)
-    assert missing == {"MeshCompiler", "MeshSolver", "make_mesh", "parallel"}, missing
+    assert not missing, missing
