@@ -774,13 +774,14 @@ def phase_compile(torch, dev, n=N_ITEMS, K=K_LANES, W=WIDTH):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         solver._process_batch_fused(roots, [W] * K)
+        solver._clock.stop()  # ends the superstep's last phase
         st = solver.stats
         if solver.best_lb > opt or (len(solver.fringe) == 0 and solver.best_lb != opt):
             raise AssertionError(f"superstep incumbent {solver.best_lb} vs optimum {opt}")
         log(json.dumps({"phase": "superstep", "extraction": "compact" if compact else "plane",
                         "lanes": K, "n": n, "width": W,
-                        "expanded": solver.expanded_nodes, "compile_s": st.restricted_s,
-                        "extraction_s": st.host_s,
+                        "expanded": solver.expanded_nodes, "compile_s": st.compile_s,
+                        "extraction_s": st.extract_s, "absorb_s": st.absorb_s,
                         "peak_bytes": torch.cuda.max_memory_allocated(),
                         "incumbent": solver.best_lb, "fringe": len(solver.fringe)}))
         del solver

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ddo_tpu_torch.utils import trace
 from ddo_tpu_torch.utils.num import sat_add
 
 I32 = torch.int32
@@ -55,7 +56,7 @@ def prefetch(tree):
 
     _map(start, tree)
     for device in devices:
-        torch.cuda.current_stream(device).synchronize()
+        trace.wait(torch.cuda.current_stream(device).synchronize)
     return _map(lambda t: host.get(id(t), t).numpy(), tree)
 
 
@@ -63,7 +64,7 @@ def _flat_select(sel, M):
     """(idx int64 [<=M], count): flat indices of the selected rows in
     stable (lane, layer, slot) order, cut at M; `count` is the number
     selected before the cut."""
-    idx = torch.nonzero(sel.reshape(-1))[:, 0]
+    idx = trace.wait(torch.nonzero, sel.reshape(-1))[:, 0]
     return idx[:M], idx.shape[0]
 
 

@@ -56,6 +56,7 @@ from ddo_tpu_torch.engine import backward as bwd
 from ddo_tpu_torch.engine import extract
 from ddo_tpu_torch.ops import segments as seg
 from ddo_tpu_torch.ops import sort as sort_ops
+from ddo_tpu_torch.utils import trace
 from ddo_tpu_torch.utils.num import INF, NEG_INF, argmax_first, sat_add, sat_sub
 
 I32 = torch.int32
@@ -150,7 +151,25 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
     With `chunk_layers` and a `cutoff`, the cutoff is polled every
     `chunk_layers` layers and `CutoffInterrupt` raised when it fires.
     Returns the dict of planes and per-lane scalars of ddo_tpu's
-    `finalize_kernel` (ddo_tpu/engine/mdd.py:1044-1060)."""
+    `finalize_kernel` (ddo_tpu/engine/mdd.py:1044-1060).
+
+    While a profiler records, the call is the span `ddo.compile.<type>`,
+    each iteration of its layer loop the spans `ddo.layer.<phase>` of its
+    sections and `finalize` the span `ddo.finalize` (`utils/trace.py`)."""
+    trace.count_layers(spec.bundle.problem.nb_variables - start)
+    with trace.laps(_COMPILE_SPANS[spec.comp_type]) as lap:
+        return _compile_lanes(spec, datas, order, root_states, root_values, root_depths,
+                              best_lb, eff_width, root_path_sets, cache_tab, dom_tab,
+                              cutoff, chunk_layers, start, lap)
+
+
+_COMPILE_SPANS = {ct: "ddo.compile." + ct.name.lower() for ct in CompilationType}
+
+
+def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, best_lb,
+                   eff_width, root_path_sets, cache_tab, dom_tab, cutoff, chunk_layers,
+                   start, lap):
+    """`compile_lanes`, with `lap` (`trace.laps`) marking its sections."""
     problem = spec.bundle.problem
     rlx = spec.bundle.relaxation
     ranking = spec.bundle.ranking
@@ -180,7 +199,8 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         assigned = root_path_sets
     else:
         order_t = (order.to(device=device, dtype=torch.long) if torch.is_tensor(order)
-                   else torch.as_tensor(np.asarray(order), dtype=torch.long, device=device))
+                   else trace.wait(torch.as_tensor, np.asarray(order), dtype=torch.long,
+                                   device=device))
         var_of = order_t.to(I32).expand(K, n)
 
     def full(shape, value, dtype=I32):
@@ -216,8 +236,9 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
              valid=false((K, n, C)))
 
     def poll(i):
+        lap()  # a poll is in no layer's span
         if device.type == "cuda" and i > start:
-            torch.cuda.synchronize(device)  # bound the device work queued
+            trace.wait(torch.cuda.synchronize, device)  # bound the device work queued
         if cutoff.must_stop():
             raise CutoffInterrupt()
 
@@ -225,6 +246,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
     for i in range(start, n):
         if chunked and (i - start) % chunk_layers == 0:
             poll(i)
+        lap("ddo.layer.rub")
         is_last = i == n - 1
 
         # root layer materializes at depth `root_depth` (clean.rs:383-405)
@@ -265,6 +287,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
             expanded += expand_ok.sum(dim=1, dtype=I32)
 
         # --- expansion of K*W rows x D slots --------------------------------
+        lap("ddo.layer.expand")
         nstate, cost, dval, valid = problem.step(pdata, flat_state, var_b, i)
         if long_arcs:
             # an unimpacted row: one identity candidate at domain slot 0
@@ -285,6 +308,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         # --- dedup: sort by (valid, key, -value, -append idx) so that the
         # head of each key-run is the best in-edge: max value, ties to the
         # last appended edge (the `>=` rule of clean.rs:215-218)
+        lap("ddo.layer.dedup")
         f_keys = _cols(problem.pack, f_state, (K, C))  # [K, C, Kk]
         Kk = f_keys.shape[2]
         key_ops = [(~f_valid).to(I32)] + [f_keys[:, :, k] for k in range(Kk)] \
@@ -330,6 +354,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         # nodes at-or-below a cached threshold, and exact nodes dominated by
         # a snapshot entry, never materialize; their theta propagates to
         # parents.  The terminal layer is never filtered.
+        lap("ddo.layer.filter")
         pruned = false((K, C))
         ptheta = full((K, C), INF)
         pci = false((K, C))
@@ -368,6 +393,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
 
         # --- squash: restrict (clean.rs:802-815) / relax (clean.rs:817-876).
         # The terminal layer is never squashed below the buffer width W.
+        lap("ddo.layer.squash")
         cap = torch.full_like(eff_width, W) if is_last else eff_width
         no = false((K,))
         need_restrict = (U > cap) if comp == CompilationType.RESTRICTED else no
@@ -448,6 +474,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
 
         # --- materialize the next layer: the first W ranking-sorted slots,
         # through the composition of the two sort permutations
+        lap("ddo.layer.materialize")
         width_used = torch.where(squashed, torch.where(need_relax, limit + 1, cap),
                                  torch.clamp(U, max=W))
         overflow |= (U > W) & ~squashed
@@ -488,6 +515,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         # ---- within-layer dominance (clean.rs:689-708, the layer-local
         # part): dominated exact rows stay in the buffer masked-invalid,
         # carrying their threshold as theta
+        lap("ddo.layer.dominance")
         wl_pruned = false((K, W))
         wl_ptheta = full((K, W), INF)
         if use_dom and not is_last:
@@ -520,6 +548,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
         nl_relaxed = nl_relaxed & q_valid
 
         # exact-best-path flag, incrementally (clean.rs:643-655)
+        lap("ddo.layer.materialize")
         par_ebp = c_ebp.gather(1, nl_bp.clamp(0, W - 1).long()) & (nl_bp >= 0)
         nl_ebp = (nl_exact | (~nl_relaxed & par_ebp)) & q_valid
 
@@ -544,6 +573,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
                    ebp=nl_ebp, wlp=wl_pruned, wlth=wl_ptheta)
     if chunked:
         poll(n)
+    lap("ddo.finalize")
     return finalize(spec, datas, var_of, cur, P, E, lel, expanded, overflow,
                     best_lb, root_depths, use_dom)
 
@@ -680,7 +710,7 @@ class _BatchPlanes:
 
     def get(self, key):
         if key not in self._np:
-            self._np[key] = tmap(lambda t: t.cpu().numpy(), self._dev[key])
+            self._np[key] = tmap(lambda t: trace.wait(t.cpu).numpy(), self._dev[key])
         return self._np[key]
 
     def prefetch(self, keys):
@@ -900,12 +930,12 @@ class CompiledBatch(list):
     @property
     def global_best(self) -> int:
         """Max best-exact-value across active lanes, NEG_INF if none."""
-        return int(self._gbest)
+        return trace.wait(int, self._gbest)
 
     @property
     def total_expanded(self) -> int:
         """Sum of node expansions across active lanes."""
-        return int(self._texp)
+        return trace.wait(int, self._texp)
 
 
 def paths_batch_multi(planes: _BatchPlanes, lanes, layers, slots, roots):
@@ -1008,18 +1038,16 @@ class DDCompiler:
 
     def _roots(self, subs, eff_widths, best_lb):
         dev = self.device
-        t = lambda x: torch.as_tensor(np.asarray(x), dtype=I32, device=dev)
+        copy = lambda x, dtype=None: trace.wait(torch.as_tensor, x, dtype=dtype, device=dev)
+        t = lambda x: copy(np.asarray(x), I32)
         first = subs[0].state
         if isinstance(first, dict):
-            states = {k: torch.as_tensor(np.stack([np.asarray(s.state[k]) for s in subs]),
-                                         device=dev) for k in first}
+            states = {k: copy(np.stack([np.asarray(s.state[k]) for s in subs])) for k in first}
         else:
-            states = torch.as_tensor(np.stack([np.asarray(s.state) for s in subs]),
-                                     device=dev)
+            states = copy(np.stack([np.asarray(s.state) for s in subs]))
         K = len(subs)
         lb = best_lb.expand(K) if torch.is_tensor(best_lb) else t(best_lb).expand(K)
-        psets = torch.as_tensor(np.stack([np.asarray(s.path_set, bool) for s in subs]),
-                                device=dev)
+        psets = copy(np.stack([np.asarray(s.path_set, bool) for s in subs]))
         return (states, t([s.value for s in subs]), t([s.depth for s in subs]),
                 lb.contiguous(), t(list(eff_widths)), psets)
 

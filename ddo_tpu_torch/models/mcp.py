@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ddo_tpu_torch.core.problem import Problem, Relaxation, StateRanking
+from ddo_tpu_torch.utils import trace
 
 I32 = torch.int32
 S, T = 1, -1
@@ -77,7 +78,7 @@ class Mcp(Problem):
     def step(self, data, states, var, depth):
         s = states["benef"]  # [B, n]
         B, n = s.shape
-        dval = torch.tensor([S, T], dtype=I32, device=s.device)  # [D]
+        dval = trace.wait(torch.tensor, [S, T], dtype=I32, device=s.device)  # [D]
         wrow = data["w"][var]  # [B, n]
         rem = torch.arange(n, device=s.device) >= var[:, None]  # [B, n]
         ns = torch.where(rem[:, None], s[:, None] + dval[:, None] * wrow[:, None], 0)

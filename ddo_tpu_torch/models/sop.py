@@ -26,6 +26,7 @@ import torch
 from ddo_tpu_torch.core.problem import Problem, Relaxation, StateRanking
 from ddo_tpu_torch.models.tsptw import TsptwWidth, merge_sets, singletons_np
 from ddo_tpu_torch.ops import bitset as bs
+from ddo_tpu_torch.utils import trace
 from ddo_tpu_torch.utils.num import INF, NEG_INF, sat_add
 
 I32 = torch.int32
@@ -136,7 +137,9 @@ class SopRelax(Relaxation):
             return x, torch.cat([torch.zeros_like(c[:, :1]), c], dim=1)
 
         def pref(csum, k):
-            k = torch.as_tensor(k, device=csum.device).expand(csum.shape[0])
+            if not torch.is_tensor(k):  # a host int crosses to the device
+                k = trace.wait(torch.as_tensor, k, device=csum.device)
+            k = k.expand(csum.shape[0])
             return csum.gather(1, torch.clamp(k, 0, n)[:, None].long())[:, 0]
 
         tm, ctm = prefix(to_must)

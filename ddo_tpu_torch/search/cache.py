@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ddo_tpu_torch.core.types import SubProblem, Threshold, host_pack
+from ddo_tpu_torch.utils import trace
 
 #: rows of every snapshot table per depth (the strongest thresholds)
 TABLE_ROWS = 256
@@ -32,8 +33,14 @@ def tables_to_device(tab, device):
     ddo_tpu's snapshots are) as torch tensors on `device`; None stays None."""
     if tab is None:
         return None
-    return {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
-            for k, v in tab.items()}
+
+    def copy(v):
+        v = np.ascontiguousarray(v)
+        if v.size == 0:  # moves nothing, so does not wait
+            return torch.as_tensor(v, device=device)
+        return trace.wait(torch.as_tensor, v, device=device)
+
+    return {k: copy(v) for k, v in tab.items()}
 
 
 class Cache:

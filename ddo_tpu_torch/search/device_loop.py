@@ -41,8 +41,6 @@ classes by class, not by their attribute names.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -74,6 +72,7 @@ from ddo_tpu_torch.models.srflp import SrflpWidth
 from ddo_tpu_torch.models.tsptw import TsptwWidth
 from ddo_tpu_torch.search.cache import EmptyCache
 from ddo_tpu_torch.search.solver import SequentialSolver
+from ddo_tpu_torch.utils import trace
 from ddo_tpu_torch.utils.num import INF, NEG_INF, argmax_first, sat_add
 
 I32 = torch.int32
@@ -525,11 +524,11 @@ class DeviceLoopSolver(SequentialSolver):
         """Write host subproblems into the first len(subs) slots (the slab
         must be empty)."""
         m, dev = len(subs), self.device
-        t = lambda rows, dtype=I32: torch.as_tensor(np.asarray(rows), dtype=dtype, device=dev)
+        t = lambda rows, dtype=I32: trace.wait(torch.as_tensor, np.asarray(rows), dtype=dtype,
+                                               device=dev)
         out = dict(slab)
         out["state"] = tmap(lambda a, *xs: a.index_copy(
-            0, torch.arange(m, device=dev),
-            torch.as_tensor(np.stack([np.asarray(x) for x in xs]), dtype=a.dtype, device=dev)),
+            0, torch.arange(m, device=dev), t(np.stack([np.asarray(x) for x in xs]), a.dtype)),
             slab["state"], *[s.state for s in subs])
         rows = dict(val=t([s.value for s in subs]),
                     ub=t([min(s.ub, INF) for s in subs]),
@@ -554,10 +553,10 @@ class DeviceLoopSolver(SequentialSolver):
             order = rows[np.lexsort((-val[rows], -ub[rows]))]
             keepm[order[:keep_best]] = True
             rows = order[keep_best:]
-        slab = dict(slab, act=torch.as_tensor(keepm, device=self.device))
+        slab = dict(slab, act=trace.wait(torch.as_tensor, keepm, device=self.device))
         if len(rows) == 0:
             return slab
-        ridx = torch.as_tensor(rows, dtype=I64, device=self.device)
+        ridx = trace.wait(torch.as_tensor, rows, dtype=I64, device=self.device)
         sel = tmap(lambda a: a[ridx], slab["state"])
         h = EX.prefetch(dict(state=sel, keys=self.problem.pack(sel).to(I32),
                              pvals=slab["pvals"][ridx], pset=slab["pset"][ridx],
@@ -575,7 +574,8 @@ class DeviceLoopSolver(SequentialSolver):
 
     # ------------------------------------------------------------------ API
     def maximize(self) -> Completion:
-        self.stats.start = time.perf_counter()
+        clock = self._clock = trace.Phases(self.stats)
+        clock.lap("pop")
         self.cache.initialize(self.problem)
         if self.filtering:
             self.dominance.prime(self.problem)
@@ -587,7 +587,7 @@ class DeviceLoopSolver(SequentialSolver):
         spec_x = self.compiler._specs[CompilationType.RELAXED]
         dev = self.device
         slab = self._empty_slab(root.state)
-        best = dict(lb=torch.tensor(self.best_lb, dtype=I32, device=dev),
+        best = dict(lb=trace.wait(torch.tensor, self.best_lb, dtype=I32, device=dev),
                     vals=torch.zeros(self._n, dtype=I32, device=dev),
                     set=torch.zeros(self._n, dtype=torch.bool, device=dev),
                     has=torch.zeros((), dtype=torch.bool, device=dev))
@@ -597,6 +597,7 @@ class DeviceLoopSolver(SequentialSolver):
         self._min_depth = 0
 
         while True:
+            clock.lap("pop")
             if self.cutoff.must_stop():
                 self._abort_device(slab, n_active)
                 aborted = True
@@ -610,19 +611,20 @@ class DeviceLoopSolver(SequentialSolver):
                 self._min_depth = min(s.depth for s in batch)
                 self.loop_events["seeds"] += 1
             if dev_lb < self.best_lb:
-                best = dict(best, lb=torch.tensor(self.best_lb, dtype=I32, device=dev))
+                best = dict(best, lb=trace.wait(torch.tensor, self.best_lb, dtype=I32,
+                                                device=dev))
                 dev_lb = self.best_lb
 
-            t0 = time.perf_counter()
+            clock.lap("snapshot", "restricted_s")
             cache_tab, dom_tab = self._filter_tables()
             if isinstance(self.cache, EmptyCache):
                 cache_tab = None
+            clock.lap("compile", "restricted_s")
             self.loop_events["chunks"] += 1
             slab, best, h = self._run_chunk(spec_r, spec_x, slab, best, cache_tab, dom_tab)
-            t1 = time.perf_counter()
-            self.stats.restricted_s += t1 - t0
 
             # ---- absorb the chunk's results
+            clock.lap("absorb", "host_s")
             s = h["stats"]
             if s["hw_over"]:
                 raise BufferOverflow(f"layer exceeded the static buffer width "
@@ -640,31 +642,31 @@ class DeviceLoopSolver(SequentialSolver):
                 self._min_depth = int(s["min_depth"])
             ubm = int(s["ub_max"]) if n_active else NEG_INF
             self.best_ub = min(self.best_ub, max(self.best_lb, ubm, self._fringe_ub_max()))
-            self.stats.host_s += time.perf_counter() - t1
 
             if s["cutov"]:
                 # replay the uncommitted superstep through the host path
+                clock.lap("absorb")
                 self.loop_events["cutov"] += 1
                 slab = self._drain_slab(slab)
                 n_active = 0
+                clock.lap("pop")
                 batch = self._get_workload()
                 if batch:
-                    t2 = time.perf_counter()
                     try:
                         self._process_batch(batch)
                     except CutoffInterrupt:
+                        clock.lap("pop")
                         self._abort(Reason.CUTOFF_OCCURRED, batch)
                         aborted = True
-                        self.stats.host_s += time.perf_counter() - t2
                         break
                     self.stats.supersteps += 1
-                    self.stats.host_s += time.perf_counter() - t2
             elif s["full"]:
+                clock.lap("absorb")
                 self.loop_events["full"] += 1
                 slab = self._drain_slab(slab, keep_best=self.slab_cap // 2)
                 n_active = min(n_active, self.slab_cap // 2)
 
-        self.stats.total_s = time.perf_counter() - self.stats.start
+        clock.stop()
         if not aborted and self.abort_proof is None:
             self.best_ub = self.best_lb
         return Completion(
@@ -695,6 +697,7 @@ class DeviceLoopSolver(SequentialSolver):
         finally:
             if guard:
                 torch.cuda.set_sync_debug_mode(prev)
+        self._clock.lap("extract", "restricted_s")  # the chunk is queued; read it
         h = EX.prefetch(dict(scalars=scalars, vals=best["vals"], set=best["set"],
                              cbuf=cbuf, dbuf=dbuf))
         sc = [int(x) for x in h["scalars"]]

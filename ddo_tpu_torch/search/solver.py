@@ -22,7 +22,6 @@ the proved optimum.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -44,31 +43,63 @@ from ddo_tpu_torch.native import NativeSearch
 from ddo_tpu_torch.search.cache import Cache, EmptyCache, SimpleCache
 from ddo_tpu_torch.search.dominance import DominanceChecker, EmptyDominanceChecker
 from ddo_tpu_torch.search.fringe import Fringe, NoDupFringe
+from ddo_tpu_torch.utils import trace
 from ddo_tpu_torch.utils.num import INF, NEG_INF
 
 
 @dataclasses.dataclass
 class SolverStats:
-    """Per-phase wall times and the node-expansions/s rate."""
+    """A solve's wall times on the host (`time.perf_counter` seconds) and
+    counts, filled by its phase clock (`utils/trace.py`).
 
-    restricted_s: float = 0.0  # restricted compilations (the whole fused
-    #                            superstep on the fused route)
-    relaxed_s: float = 0.0  # relaxed compilations (two-pass route)
-    host_s: float = 0.0  # host time: extraction, cache, fringe upkeep
+    Five phases tile the solve, so they add up to `total_s`: `pop_s`
+    (set-up, cache and dominance eviction by layer, fringe pops and their
+    probes, the cutoff), `snapshot_s` (the filter tables), `compile_s`
+    (the host's time queueing the compiles; a device-loop chunk's
+    whole host time), `extract_s` (reading the compiled batches on the host: the
+    compact rows, the planes and scalars the superstep reads, their waits)
+    and `absorb_s` (incumbent, cache and dominance rows, cutset rows and
+    their paths, fringe pushes).  The plane route reads its planes lazily,
+    inside `absorb_s`.
+
+    The older fields cut the same wall otherwise: `restricted_s` is the
+    restricted compile with its snapshot and compact extraction (on the
+    fused route both compiles), `relaxed_s` the relaxed one on the
+    two-pass route, `host_s` the upkeep after each of them; pops,
+    snapshots before a chunk and slab drains are in none of them.
+
+    `layers` counts layer-loop iterations (n - start per compile),
+    `host_syncs` the waits on the device (`trace.wait`), `supersteps` the
+    K-lane compiles of popped subproblems.  `start_ns` and `end_ns` bracket
+    the solve on `time.time_ns()`, the clock of the profiler's events."""
+
+    restricted_s: float = 0.0
+    relaxed_s: float = 0.0
+    host_s: float = 0.0
     supersteps: int = 0
     start: float = 0.0
     total_s: float = 0.0
+    pop_s: float = 0.0
+    snapshot_s: float = 0.0
+    compile_s: float = 0.0
+    extract_s: float = 0.0
+    absorb_s: float = 0.0
+    layers: int = 0
+    host_syncs: int = 0
+    start_ns: int = 0
+    end_ns: int = 0
 
     def expansions_per_sec(self, expanded: int) -> float:
-        dev = self.restricted_s + self.relaxed_s
-        return expanded / dev if dev > 0 else 0.0
+        """Node expansions per second of the compiles' host time."""
+        return expanded / self.compile_s if self.compile_s > 0 else 0.0
 
     def summary(self, explored: int, expanded: int) -> str:
         return (
             f"supersteps={self.supersteps} explored={explored} "
-            f"expanded={expanded} restricted={self.restricted_s:.3f}s "
-            f"relaxed={self.relaxed_s:.3f}s host={self.host_s:.3f}s "
-            f"total={self.total_s:.3f}s "
+            f"expanded={expanded} layers={self.layers} pop={self.pop_s:.3f}s "
+            f"snapshot={self.snapshot_s:.3f}s compile={self.compile_s:.3f}s "
+            f"extract={self.extract_s:.3f}s absorb={self.absorb_s:.3f}s "
+            f"total={self.total_s:.3f}s host_syncs={self.host_syncs} "
             f"rate={self.expansions_per_sec(expanded):,.0f} nodes/s"
         )
 
@@ -138,11 +169,15 @@ class SequentialSolver:
         self.open_by_layer = np.zeros(problem.nb_variables + 1, np.int64)
         self.first_active_layer = 0
         self.stats = SolverStats()
+        # `maximize` starts a clock of its own; this one times a superstep
+        # run alone
+        self._clock = trace.Phases(self.stats)
 
     # ------------------------------------------------------------------ API
     def maximize(self) -> Completion:
         """sequential.rs:475-494."""
-        self.stats.start = time.perf_counter()
+        clock = self._clock = trace.Phases(self.stats)
+        clock.lap("pop")
         self.cache.initialize(self.problem)
         if self.filtering:
             self.dominance.prime(self.problem)
@@ -150,6 +185,7 @@ class SequentialSolver:
         self.open_by_layer[0] += 1
 
         while True:
+            clock.lap("pop")
             batch = self._get_workload()
             if batch is None:
                 break
@@ -160,11 +196,12 @@ class SequentialSolver:
                 self._process_batch(batch)
             except CutoffInterrupt:
                 # the cutoff fired inside a chunked compilation
+                clock.lap("pop")
                 self._abort(Reason.CUTOFF_OCCURRED, batch)
                 break
             self.stats.supersteps += 1
 
-        self.stats.total_s = time.perf_counter() - self.stats.start
+        clock.stop()
         if self.abort_proof is None:
             self.best_ub = self.best_lb
         return Completion(
@@ -359,21 +396,24 @@ class SequentialSolver:
         if not chunking:
             return self._process_batch_fused(batch, widths)
 
-        t0 = time.perf_counter()
+        clock = self._clock
+        clock.lap("snapshot", "restricted_s")
         cache_tab, dom_tab = self._filter_tables()
+        clock.lap("compile", "restricted_s")
         restricted = self.compiler.compile_batch(
             CompilationType.RESTRICTED, batch, self.best_lb, widths,
             cache_tab=cache_tab, dom_tab=dom_tab,
             cutoff=self.cutoff, chunk_layers=self.compile_chunk,
         )
+        clock.lap("extract", "restricted_s")
         self.expanded_nodes += restricted.total_expanded
         ex_r = self._extract_batch(restricted) if self._compact else None
-        t1 = time.perf_counter()
-        self.stats.restricted_s += t1 - t0
+        clock.lap("extract", "host_s")
         need_relax, widths2 = [], []
         improved = restricted.global_best > self.best_lb
         if improved and self._compact:
             restricted._planes.prefetch(self._PATH_PLANES)
+        clock.lap("absorb", "host_s")
         for nd, dd, w in zip(batch, restricted, widths):
             if improved:
                 self._maybe_update_best(dd)
@@ -386,25 +426,24 @@ class SequentialSolver:
         if self._compact:
             self._apply_cache_compact(ex_r)
             self._absorb_dominance_compact(ex_r)
-        self.stats.host_s += time.perf_counter() - t1
 
         if not need_relax:
             return
-        t2 = time.perf_counter()
         # refreshed snapshots: the restricted pass may have strengthened
         # both stores
+        clock.lap("snapshot", "relaxed_s")
         cache_tab, dom_tab = self._filter_tables()
+        clock.lap("compile", "relaxed_s")
         relaxed = self.compiler.compile_batch(
             CompilationType.RELAXED, need_relax, self.best_lb, widths2,
             cache_tab=cache_tab, dom_tab=dom_tab,
             cutoff=self.cutoff, chunk_layers=self.compile_chunk,
         )
+        clock.lap("extract", "relaxed_s")
         self.expanded_nodes += relaxed.total_expanded
         ex_x = self._extract_batch(relaxed, want_cutset=True) if self._compact else None
-        t3 = time.perf_counter()
-        self.stats.relaxed_s += t3 - t2
+        clock.lap("absorb", "host_s")
         self._absorb_relaxed(list(zip(need_relax, relaxed)), need_relax, relaxed, ex_x)
-        self.stats.host_s += time.perf_counter() - t3
 
     def _absorb_relaxed(self, need, batch, relaxed, ex_x):
         """The relaxed pass's results: incumbent, cache and dominance rows,
@@ -437,20 +476,23 @@ class SequentialSolver:
         restricted pass's incumbent.  Both passes share the pre-superstep
         cache/dominance snapshots (ddo_tpu's documented divergence from
         the two-pass route: a staler snapshot only weakens pruning)."""
-        t0 = time.perf_counter()
+        clock = self._clock
+        clock.lap("snapshot", "restricted_s")
         cache_tab, dom_tab = self._filter_tables()
+        clock.lap("compile", "restricted_s")
         restricted, relaxed = self.compiler.compile_fused(
             batch, self.best_lb, widths, cache_tab=cache_tab, dom_tab=dom_tab)
+        clock.lap("extract", "restricted_s")
         self.expanded_nodes += restricted.total_expanded + relaxed.total_expanded
         ex_r = ex_x = None
         if self._compact:
             ex_r = self._extract_batch(restricted)
             ex_x = self._extract_batch(relaxed, want_cutset=True)
-        t1 = time.perf_counter()
-        self.stats.restricted_s += t1 - t0
+        clock.lap("extract", "host_s")
         improved = restricted.global_best > self.best_lb
         if improved and self._compact:
             restricted._planes.prefetch(self._PATH_PLANES)
+        clock.lap("absorb", "host_s")
         need = []
         for nd, dd_r, dd_x in zip(batch, restricted, relaxed):
             if improved:
@@ -464,7 +506,6 @@ class SequentialSolver:
             self._apply_cache_compact(ex_r)
             self._absorb_dominance_compact(ex_r)
         self._absorb_relaxed(need, batch, relaxed, ex_x)
-        self.stats.host_s += time.perf_counter() - t1
 
     def _maybe_update_best(self, dd):
         """sequential.rs:394-400."""
@@ -584,10 +625,12 @@ class NativeSolver:
 
     # ------------------------------------------------------------------ API
     def maximize(self) -> Completion:
-        self.stats.start = time.perf_counter()
+        clock = self._clock = trace.Phases(self.stats)
+        clock.lap("pop")
         self.ns.push_batch(self._root_key[None, :], [0], [self._root.value], [INF], [0],
                            self._root.path_vals[None, :], self._root.path_set[None, :])
         while True:
+            clock.lap("pop")
             if self.cutoff.must_stop():
                 self._abort()
                 break
@@ -618,10 +661,11 @@ class NativeSolver:
                 else:
                     self._superstep_fused(subs, widths)
             except CutoffInterrupt:
+                clock.lap("pop")
                 self._abort()
                 break
 
-        self.stats.total_s = time.perf_counter() - self.stats.start
+        clock.stop()
         if self.abort_proof is None:
             self.best_ub = self.best_lb
         return Completion(
@@ -631,13 +675,15 @@ class NativeSolver:
 
     def _superstep_fused(self, subs, widths):
         """Restricted and relaxed passes in one `compile_fused`."""
-        t0 = time.perf_counter()
-        restricted, relaxed = self.compiler.compile_fused(
-            subs, self.best_lb, widths, **self._filter_tables())
-        t1 = time.perf_counter()
-        self.stats.restricted_s += t1 - t0
+        clock = self._clock
+        clock.lap("snapshot", "restricted_s")
+        tables = self._filter_tables()
+        clock.lap("compile", "restricted_s")
+        restricted, relaxed = self.compiler.compile_fused(subs, self.best_lb, widths, **tables)
+        clock.lap("extract", "host_s")
         self.expanded_nodes += restricted.total_expanded + relaxed.total_expanded
         improved = restricted.global_best > self.best_lb
+        clock.lap("absorb", "host_s")
         need = []
         for s, dd_r, dd_x in zip(subs, restricted, relaxed):
             if improved:
@@ -652,21 +698,23 @@ class NativeSolver:
             self._absorb(dd_x)
             if not dd_x.is_exact():
                 self._enqueue(dd_x, s.ub)
-        self.stats.host_s += time.perf_counter() - t1
         self.stats.supersteps += 1
 
     def _superstep_two_pass(self, subs, widths):
         """Chunked restricted then relaxed compiles, interruptible by the
         cutoff (`CutoffInterrupt`)."""
-        t0 = time.perf_counter()
+        clock = self._clock
+        clock.lap("snapshot", "restricted_s")
+        tables = self._filter_tables()
+        clock.lap("compile", "restricted_s")
         restricted = self.compiler.compile_batch(
             CompilationType.RESTRICTED, subs, self.best_lb, widths, cutoff=self.cutoff,
-            chunk_layers=self.compile_chunk, **self._filter_tables())
-        t1 = time.perf_counter()
-        self.stats.restricted_s += t1 - t0
+            chunk_layers=self.compile_chunk, **tables)
+        clock.lap("extract", "host_s")
         self.expanded_nodes += restricted.total_expanded
         need, widths2 = [], []
         improved = restricted.global_best > self.best_lb
+        clock.lap("absorb", "host_s")
         for s, dd, w in zip(subs, restricted, widths):
             if improved:
                 self._maybe_update_best(dd)
@@ -674,25 +722,25 @@ class NativeSolver:
             if not dd.is_exact():
                 need.append(s)
                 widths2.append(w)
-        self.stats.host_s += time.perf_counter() - t1
         self.stats.supersteps += 1
         if not need:
             return
-        t2 = time.perf_counter()
+        clock.lap("snapshot", "relaxed_s")
+        tables = self._filter_tables()
+        clock.lap("compile", "relaxed_s")
         relaxed = self.compiler.compile_batch(
             CompilationType.RELAXED, need, self.best_lb, widths2, cutoff=self.cutoff,
-            chunk_layers=self.compile_chunk, **self._filter_tables())
-        t3 = time.perf_counter()
-        self.stats.relaxed_s += t3 - t2
+            chunk_layers=self.compile_chunk, **tables)
+        clock.lap("extract", "host_s")
         self.expanded_nodes += relaxed.total_expanded
         improved = relaxed.global_best > self.best_lb
+        clock.lap("absorb", "host_s")
         for s, dd in zip(need, relaxed):
             if improved:
                 self._maybe_update_best(dd)
             self._absorb(dd)
             if not dd.is_exact():
                 self._enqueue(dd, s.ub)
-        self.stats.host_s += time.perf_counter() - t3
 
     def _abort(self):
         """Abort on cutoff with bound recovery from the pending fringe
