@@ -132,7 +132,10 @@ each), TSPTW (9-10), tsptw_search (17), sop, srflp, lcs, psp and alp
 zeroed just before it and read just after), native (14), cli (15),
 wide (16), mesh (18) and tutorial (19); both kernels must have launched in each, and each kernel's
 count is also kept by route (K2's "stream" route's also by cluster
-size).  Phases 5 and 12 are in no count.
+size).  Each path's line also gives its layer-loop iterations, those
+replayed from CUDA graphs and the graphs captured and replayed: the
+knapsack and TSPTW paths must replay layers, mcp and sop none (their
+layer bodies wait on the host).  Phases 5 and 12 are in no count.
 
     python3 chip_smoke.py --parent DIR
 
@@ -1927,9 +1930,9 @@ def main(argv):
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    from ddo_tpu_torch.engine import backward as bwd
+    from ddo_tpu_torch.engine import backward as bwd, mdd
     from ddo_tpu_torch.ops import sort as srt
-    from ddo_tpu_torch.utils import cuda_build
+    from ddo_tpu_torch.utils import cuda_build, trace
 
     # ---- 1. device and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2001,15 +2004,26 @@ def main(argv):
                  "fused_backward": dict(bwd.ROUTE_LAUNCHES),
                  "stream_clusters": dict(bwd.CLUSTER_LAUNCHES)})
 
+    graph_use = {}
+
+    def graph_counts():
+        return {"layers": trace.layers(), "graph_layers": trace.graph_layers(),
+                "captures": mdd.GRAPH_CAPTURES, "replays": mdd.GRAPH_REPLAYS}
+
     def counted(path, drive):
         """Drive one path between a reset and a read of the counts; a
-        drive that returns (launches, routes) counts its own runs only."""
+        drive that returns (launches, routes) counts its own runs only.
+        Beside them: the path's layer-loop iterations, those replayed from
+        CUDA graphs, and the graphs captured and replayed (three a layer)."""
         reset()
+        before = graph_counts()
         t0 = time.perf_counter()
         own = drive()
         launches[path], routes = own if own else read()
+        graph_use[path] = {k: v - before[k] for k, v in graph_counts().items()}
         log(json.dumps({"phase": "launches", "path": path, **launches[path],
-                        "routes": routes, "seconds": time.perf_counter() - t0}))
+                        "routes": routes, "graphs": graph_use[path],
+                        "seconds": time.perf_counter() - t0}))
         if not all(launches[path].values()):
             raise AssertionError(f"a kernel of the {path} path never launched: "
                                  f"{launches[path]}")
@@ -2041,6 +2055,14 @@ def main(argv):
     counted("wide", lambda: phase_wide(torch, dev))
     counted("mesh", lambda: phase_mesh(torch, dev, (tt.make_mesh(), tt.make_mesh([dev, dev]))))
     counted("tutorial", lambda: phase_tutorial(torch, dev, tut))
+    # the main paths replay their layers from CUDA graphs; mcp's and sop's
+    # layer bodies wait on the host, so they run eagerly
+    for path in ("knapsack", "tsptw"):
+        if not graph_use[path]["graph_layers"]:
+            raise AssertionError(f"the {path} path replayed no layer: {graph_use[path]}")
+    for path in ("mcp", "sop"):
+        if graph_use[path]["graph_layers"]:
+            raise AssertionError(f"the {path} path replayed layers: {graph_use[path]}")
 
     # the N20 class at W=256 (lanes of 5,376 candidates: sort-1 on the
     # merge route) and LCS with 10 strings over 20 letters, both in no

@@ -13,6 +13,17 @@ numpy arrays without the batch dimension.
 
 Every device hook receives the model's `data` explicitly: the dict of
 instance tensors that `data(device)` built on the compiler's device.
+Every value of the instance a hook reads comes from there: the engine
+replays one compile's layers, hooks included, for every instance of the
+same shapes (engine/mdd.py), so a value read from a Python attribute
+would stay the first instance's.  The shapes (n, the domain size, the
+state's widths) may come from attributes.
+
+A hook that takes `depth` (`step`, `next_variable`, `Relaxation.rub`)
+gets it as a Python int or, from the engine, as an int64 0-d tensor on
+the device.  Read it with `depth_row` and `depth_select`, or in
+arithmetic; never as an index or through `int()`, which would wait for
+the device.
 """
 
 from __future__ import annotations
@@ -24,6 +35,21 @@ import torch
 
 from ddo_tpu_torch.core.types import state_leaves
 from ddo_tpu_torch.utils.num import INF, VALUE_DTYPE
+
+
+def depth_row(table, depth):
+    """`table[depth]` for a depth given as a Python int or as an int64
+    0-d tensor on the device, without reading the tensor on the host
+    (indexing with a 0-d tensor would)."""
+    if torch.is_tensor(depth):
+        return table.index_select(0, depth.reshape(1)).squeeze(0)
+    return table[depth]
+
+
+def depth_select(cond, a, b):
+    """`a if cond else b` for a condition on the depth: a Python bool, or
+    a 0-d bool tensor on the device, which selects elementwise."""
+    return torch.where(cond, a, b) if torch.is_tensor(cond) else (a if cond else b)
 
 
 class Problem:
@@ -54,8 +80,9 @@ class Problem:
         """Expand every domain slot of B states.
 
         `states` [B, ...], `var` int64[B] the branched variable of each
-        row, `depth` the layer index.  Returns `(next_states [B, D, ...],
-        cost int32[B, D], dval int32[B, D], valid bool[B, D])`;
+        row, `depth` the layer index (see the module notes).  Returns
+        `(next_states [B, D, ...], cost int32[B, D], dval int32[B, D],
+        valid bool[B, D])`;
         `valid=False` marks slots outside the domain of `var`."""
         raise NotImplementedError
 

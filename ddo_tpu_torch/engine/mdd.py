@@ -25,7 +25,10 @@ One call compiles K diagrams at once, one per root subproblem (a "lane"):
 The layer loop is a Python loop over layers; every per-lane decision in it
 (is this the root layer, which variable to branch on, does the layer
 overflow its width, relax or not) stays a [K] device tensor combined with
-`torch.where`, so a compile makes no host round trip.  With a dynamic
+`torch.where`, so a compile makes no host round trip.  The layer index
+itself is a device tensor that the body advances, and the body updates
+its buffers in place (`_Layers`), so every layer runs the same body: on
+a card, replayed from CUDA graphs captured once per compile shape.  With a dynamic
 order (`var_order()` is None) each lane picks its own variable per layer
 through `next_variable`; when the model overrides `is_impacted_by` the
 engine runs in long-arc mode (pooled.rs:608-680): a node the branched
@@ -44,6 +47,7 @@ divergence (a recycled node keeps only its original in-edge).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Optional
 
@@ -107,9 +111,10 @@ def _write_layer(planes, i, values):
         planes[:, i] = values
 
 
-def _sort(ops, num_keys):
-    # K1 reads strided operands: no copy beyond the int32 casts
-    return sort_ops.multi_sort([o.to(I32) for o in ops], num_keys)
+def _sort(ops, num_keys, out=None):
+    # K1 reads strided operands: no copy beyond the int32 casts; `out`
+    # takes its output
+    return sort_ops.multi_sort([o.to(I32) for o in ops], num_keys, out=out)
 
 
 def _cols(fn, states, lead):
@@ -153,9 +158,12 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
     Returns the dict of planes and per-lane scalars of ddo_tpu's
     `finalize_kernel` (ddo_tpu/engine/mdd.py:1044-1060).
 
-    While a profiler records, the call is the span `ddo.compile.<type>`,
-    each iteration of its layer loop the spans `ddo.layer.<phase>` of its
-    sections and `finalize` the span `ddo.finalize` (`utils/trace.py`)."""
+    On a card the layer loop replays CUDA graphs (`_Layers`).  While a
+    profiler records, the call is the span `ddo.compile.<type>`, each
+    iteration of its layer loop run eagerly the spans `ddo.layer.<phase>`
+    of its sections, each replayed one the span `ddo.layer.replay`
+    (after `ddo.layer.capture` where it captures), and `finalize` the
+    span `ddo.finalize` (`utils/trace.py`)."""
     trace.count_layers(spec.bundle.problem.nb_variables - start)
     with trace.laps(_COMPILE_SPANS[spec.comp_type]) as lap:
         return _compile_lanes(spec, datas, order, root_states, root_values, root_depths,
@@ -170,70 +178,18 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
                    eff_width, root_path_sets, cache_tab, dom_tab, cutoff, chunk_layers,
                    start, lap):
     """`compile_lanes`, with `lap` (`trace.laps`) marking its sections."""
-    problem = spec.bundle.problem
-    rlx = spec.bundle.relaxation
-    ranking = spec.bundle.ranking
-    pdata, rdata, kdata = datas
-    dom = spec.dominance
-    comp = spec.comp_type
+    n = spec.bundle.problem.nb_variables
     device = root_values.device
-    K = root_values.shape[0]
-    n, W, D = problem.nb_variables, spec.width, problem.domain_size
-    C = W * D
-    use_dom = dom is not None and dom.key_cols(root_states) is not None
-    use_dom_snap = use_dom and dom_tab is not None
-    filtering = cache_tab is not None or use_dom_snap
-    long_arcs = has_long_arcs(problem)
-    dynamic_order = order is None
-
-    eff_width = torch.clamp(eff_width, 1, W)
-    lel = torch.full((K,), n + 1, dtype=I32, device=device)
-    expanded = torch.zeros((K,), dtype=I32, device=device)
-    overflow = torch.zeros((K,), dtype=torch.bool, device=device)
-    idxs = torch.arange(C, dtype=I32, device=device)
-    neg_idxs = (-idxs).expand(K, C)
-    q = torch.arange(W, dtype=I32, device=device)
-    slot0 = torch.arange(D, device=device) == 0
-    if dynamic_order:
-        var_of = torch.zeros((K, n), dtype=I32, device=device)
-        assigned = root_path_sets
-    else:
-        order_t = (order.to(device=device, dtype=torch.long) if torch.is_tensor(order)
-                   else trace.wait(torch.as_tensor, np.asarray(order), dtype=torch.long,
-                                   device=device))
-        var_of = order_t.to(I32).expand(K, n)
-
-    def full(shape, value, dtype=I32):
-        return torch.full(shape, value, dtype=dtype, device=device)
-
-    false = lambda shape: torch.zeros(shape, dtype=torch.bool, device=device)
-
-    # --- the root layer as a [K, W] row (slot 0) --------------------------
-    r_state = tmap(lambda x: x[:, None].expand((K, W) + tuple(x.shape[1:])),
-                   root_states)
-    r_val = full((K, W), NEG_INF)
-    r_val[:, 0] = root_values
-    r_mask = false((K, W))
-    r_mask[:, 0] = True
-    cur = dict(
-        state=tmap(torch.zeros_like, r_state), val=full((K, W), NEG_INF),
-        mask=false((K, W)), exact=false((K, W)), relaxed=false((K, W)),
-        bp=full((K, W), -1), bd=full((K, W), 0), bs=false((K, W)),
-        ebp=false((K, W)), wlp=false((K, W)), wlth=full((K, W), INF),
-    )
-
-    # --- output planes, neutral below the first layer run -----------------
-    N1 = (K, n + 1, W)
-    P = dict(
-        state=tmap(lambda x: torch.zeros((K, n + 1) + tuple(x.shape[1:]),
-                                         dtype=x.dtype, device=device), r_state),
-        val=full(N1, NEG_INF), mask=false(N1), exact=false(N1),
-        relaxed=false(N1), rub=full(N1, INF), bp=full(N1, -1), bd=full(N1, 0),
-        bs=false(N1), wlp=false(N1), wlth=full(N1, INF),
-        eptheta=full((K, n, W), INF), hic=false((K, n, W)),
-    )
-    E = dict(child=full((K, n, C), -1), cost=full((K, n, C), 0),
-             valid=false((K, n, C)))
+    if order is not None:
+        order = (order.to(device=device, dtype=torch.long) if torch.is_tensor(order)
+                 else trace.wait(torch.as_tensor, np.asarray(order), dtype=torch.long,
+                                 device=device))
+    inputs = dict(datas=datas, order=order, root_states=root_states,
+                  root_values=root_values, root_depths=root_depths, best_lb=best_lb,
+                  eff_width=torch.clamp(eff_width, 1, spec.width),
+                  root_path_sets=root_path_sets if order is None else None,
+                  cache_tab=cache_tab, dom_tab=dom_tab)
+    layers = _layers(spec, inputs, start)
 
     def poll(i):
         lap()  # a poll is in no layer's span
@@ -246,55 +202,351 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
     for i in range(start, n):
         if chunked and (i - start) % chunk_layers == 0:
             poll(i)
+        layers.run(i == n - 1, lap)
+    if chunked:
+        poll(n)
+    lap("ddo.finalize")
+    var_of, P, lel, expanded, overflow = layers.kept()
+    return finalize(spec, datas, var_of, layers.cur, P, layers.E, lel, expanded, overflow,
+                    best_lb, root_depths, layers.use_dom)
+
+
+# ------------------------------------------------------------ layer graphs
+#: compile shapes (`graph_key`) whose layers a card replays from CUDA
+#: graphs, least recently used first.  Each holds its buffers and a
+#: memory pool about one eager layer's peak, one for the restricted and
+#: one for the relaxed pass of each lane count, so a search whose lane
+#: count changes from superstep to superstep keeps those of its last few
+#: counts and not a pool per count it has met
+GRAPH_CACHE_SIZE = 8
+_GRAPHS = collections.OrderedDict()
+#: the entry of a shape whose layer body waits on the host: it runs eagerly
+_EAGER = "eager"
+#: CUDA graphs captured and replayed since import, three a layer
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
+_SIDE_STREAMS = {}
+
+#: what the carried layer, the [K, n+1, W] planes and the [K, n, C]
+#: edges hold; a buffer starts each compile filled with `_FILL` (0 or
+#: False where absent): the planes' neutral fill below the first layer run
+_CARRY = ("state", "val", "mask", "exact", "relaxed", "bp", "bd", "bs", "ebp", "wlp", "wlth")
+_PLANES = ("state", "val", "mask", "exact", "relaxed", "rub", "bp", "bd", "bs", "wlp", "wlth")
+_EDGES = ("child", "cost", "valid")
+_FILL = dict(val=NEG_INF, rub=INF, bp=-1, wlth=INF, eptheta=INF, child=-1)
+_BOOLS = {"mask", "exact", "relaxed", "bs", "ebp", "wlp", "hic", "valid"}
+
+
+def _tree(fn, tree, *rest):
+    """`fn` on each tensor leaf of a tree of dicts, tuples and lists (and
+    on the matching leaves of `rest`); other leaves stay as they are."""
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree(fn, v, *(r[j] for r in rest)) for j, v in enumerate(tree))
+    return fn(tree, *rest) if torch.is_tensor(tree) else tree
+
+
+def _signature(tree):
+    """The structure of a tree with each tensor leaf's shape and dtype and
+    each other leaf's value."""
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, _signature(v)) for k, v in sorted(tree.items()))
+    if isinstance(tree, (tuple, list)):
+        return ("seq",) + tuple(_signature(v) for v in tree)
+    return ("tensor", tuple(tree.shape), tree.dtype) if torch.is_tensor(tree) else tree
+
+
+def graph_key(spec: DDSpec, inputs) -> tuple:
+    """What fixes a compile's layer body, and so keys its graphs: the
+    model's, relaxation's, ranking's and dominance's classes (which fix
+    long arcs), the compilation type, n, W, D, the shape and dtype of
+    every input leaf (`_compile_lanes`' `inputs`: K, the roots, the
+    model's data, the order, each filter table and its length, with None
+    where one is absent, which also gives a dynamic order and each
+    table's flag) and the device; never an object's identity, since every
+    solve brings a new instance with new tensors.  The entry under a key
+    holds the middle layers' graphs apart from the last layer's
+    (`is_last`), whose body differs."""
+    b = spec.bundle
+    return (type(b.problem), type(b.relaxation), type(b.ranking), type(spec.dominance),
+            spec.comp_type, b.problem.nb_variables, spec.width, b.problem.domain_size,
+            _signature(inputs), str(inputs["root_values"].device))
+
+
+def _layers(spec, inputs, start):
+    """The `_Layers` of one compile, begun at layer `start`: on a card the
+    kept ones of its shape, loaded with `inputs`; fresh ones, run
+    eagerly, on the CPU and for a shape whose body waits on the host."""
+    layers = _EAGER
+    if inputs["root_values"].is_cuda:
+        key = graph_key(spec, inputs)
+        layers = _GRAPHS.get(key)
+        if layers is None:
+            layers = _GRAPHS[key] = _Layers(spec, inputs, key)
+            while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+                _GRAPHS.popitem(last=False)
+        else:
+            _GRAPHS.move_to_end(key)
+            if layers is not _EAGER:
+                layers.load(inputs)
+    if layers is _EAGER:
+        layers = _Layers(spec, inputs)
+    layers.begin(start)
+    return layers
+
+
+def _no_lap(name=None):
+    pass
+
+
+def _put(plane, i1, value):
+    """plane[:, i] = value for a [K, m, ...] plane, `i1` the int64 [1]
+    index on its device (no host read of the index)."""
+    plane.index_copy_(1, i1, value.to(plane.dtype).unsqueeze(1))
+
+
+class _Layers:
+    """The layer loop of one compile shape: the buffers its body reads and
+    writes, and the body, cut into three segments at K1's two sorts.
+
+    The body reads the layer index `i`, an int64 0-d tensor on the
+    compile device, and the compile's inputs `inp`, and updates in place
+    the carried layer `cur`, the planes `P`, the edges `E`, `lel`,
+    `expanded` and `overflow` (and under a dynamic order `var_of` and
+    `assigned`), then advances `i`: one body serves every layer.  Fresh
+    `_Layers` run it eagerly.  Kept ones (a card's, under `key`) copy each
+    compile's inputs into their own (`load`) and run the first layer of
+    each kind, a middle one and the last one, eagerly, which loads every
+    kernel; the next layer of that kind captures the body as three CUDA
+    graphs in one memory pool, replayed for every later one, with K1
+    called eagerly between them into `sorted`, the input of the next
+    graph.  A body that waits on the host cannot be captured: the capture
+    is given up (`trace.CaptureRefused`), and that compile and every later
+    one of its shape run eagerly.  `kept` copies out the buffers a
+    compile's result keeps, which a later compile of the shape
+    overwrites."""
+
+    def __init__(self, spec, inputs, key=None):
+        problem, dom = spec.bundle.problem, spec.dominance
+        self.spec, self.key = spec, key
+        self.inp = inp = _tree(torch.clone, inputs) if key is not None else inputs
+        device = self.device = inp["root_values"].device
+        K = self.K = inp["root_values"].shape[0]
+        n, W, D = self.n, self.W, self.D = problem.nb_variables, spec.width, problem.domain_size
+        C = self.C = W * D
+        self.use_dom = dom is not None and dom.key_cols(inp["root_states"]) is not None
+        self.use_dom_snap = self.use_dom and inp["dom_tab"] is not None
+        self.filtering = inp["cache_tab"] is not None or self.use_dom_snap
+        self.long_arcs = has_long_arcs(problem)
+        self.dynamic_order = inp["order"] is None
+
+        empty = lambda shape, dtype=I32: torch.empty(shape, dtype=dtype, device=device)
+        self.idxs = torch.arange(C, dtype=I32, device=device)
+        self.neg_idxs = (-self.idxs).expand(K, C)
+        self.q = torch.arange(W, dtype=I32, device=device)
+        self.slot0 = torch.arange(D, device=device) == 0
+        self.i = empty((), torch.long)
+        self.i1 = self.i.view(1)
+        # the root layer as a [K, W] row (slot 0)
+        self.r_state = tmap(lambda x: x[:, None].expand((K, W) + tuple(x.shape[1:])),
+                            inp["root_states"])
+        self.r_val = empty((K, W))
+        self.r_mask = torch.zeros((K, W), dtype=torch.bool, device=device)
+        self.r_mask[:, 0] = True
+
+        def bufs(names, lead):
+            return {k: tmap(lambda x: empty(lead + tuple(x.shape[1:]), x.dtype),
+                            inp["root_states"]) if k == "state"
+                    else empty(lead, torch.bool if k in _BOOLS else I32) for k in names}
+
+        self.cur = bufs(_CARRY, (K, W))
+        self.P = {**bufs(_PLANES, (K, n + 1, W)), **bufs(("eptheta", "hic"), (K, n, W))}
+        self.E = bufs(_EDGES, (K, n, C))
+        self.lel, self.expanded = empty((K,)), empty((K,))
+        self.overflow = empty((K,), torch.bool)
+        if self.dynamic_order:
+            self.var_of, self.assigned = empty((K, n)), empty((K, n), torch.bool)
+        self.graphs, self.warm, self.refused = {}, set(), False
+        self.sorted = [None, None]  # kept ones: K1's output of each sort
+        if key is not None:
+            self.pool = torch.cuda.graph_pool_handle()
+
+    def load(self, inputs):
+        """Copy a compile's inputs into the kept ones."""
+        _tree(lambda dst, src: dst.copy_(src), self.inp, inputs)
+
+    def begin(self, start):
+        """Every buffer as it stands before layer `start`."""
+        for group in (self.cur, self.P, self.E):
+            for k, v in group.items():
+                fill = _FILL.get(k, 0)
+                tmap(lambda x: x.fill_(fill), v)
+        self.lel.fill_(self.n + 1)
+        self.expanded.zero_()
+        self.overflow.zero_()
+        if self.dynamic_order:
+            self.var_of.zero_()
+            self.assigned.copy_(self.inp["root_path_sets"])
+        else:
+            self.var_of = self.inp["order"].to(I32).expand(self.K, self.n)
+        self.r_val.fill_(NEG_INF)
+        self.r_val[:, 0] = self.inp["root_values"]
+        self.i.fill_(start)
+
+    def kept(self):
+        """(var_of, P, lel, expanded, overflow) for `finalize`: copies of
+        the kept buffers, which a later compile of the shape overwrites.
+        (`cur` and `E` are only read, before any later compile.)"""
+        if self.key is None:
+            return self.var_of, self.P, self.lel, self.expanded, self.overflow
+        var_of = self.var_of.clone() if self.dynamic_order else self.var_of
+        return (var_of, {k: tmap(torch.clone, v) for k, v in self.P.items()},
+                self.lel.clone(), self.expanded.clone(), self.overflow.clone())
+
+    # ------------------------------------------------------------- a layer
+    def run(self, is_last, lap):
+        """One layer: eagerly, or from this shape's graphs of its kind."""
+        if self.key is None or self.refused:
+            return self._eager(is_last, lap)
+        graphs = self.graphs.get(is_last)
+        if graphs is None:
+            if is_last not in self.warm:
+                self.warm.add(is_last)
+                return self._eager(is_last, lap)
+            lap("ddo.layer.capture")
+            graphs = self._capture(is_last)
+            if graphs is None:
+                return self._eager(is_last, lap)
+        lap("ddo.layer.replay")
+        self._replay(*graphs)
+
+    def _eager(self, is_last, lap):
+        ops1, nk1, c = self._seg1(is_last, lap)
+        s1 = _sort(ops1, nk1, self._sorted(0, ops1))
+        ops2, nk2, c = self._seg2(is_last, s1, c, lap)
+        s2 = _sort(ops2, nk2, self._sorted(1, ops2))
+        self._seg3(is_last, s2, c, lap)
+
+    def _sorted(self, j, ops):
+        """K1's output buffer of sort j (kept `_Layers` only)."""
+        if self.key is not None and self.sorted[j] is None:
+            self.sorted[j] = torch.empty((len(ops),) + tuple(ops[0].shape), dtype=I32,
+                                         device=self.device)
+        return self.sorted[j]
+
+    def _graph(self, body):
+        """`body()` captured as a CUDA graph in this shape's pool: the graph
+        and what body returned (tensors the graph writes on replay)."""
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        try:
+            out = body()
+        finally:
+            graph.capture_end()
+        return graph, out
+
+    def _capture(self, is_last):
+        """The three graphs of a layer of this kind, or None where the body
+        waits on the host (this shape then runs eagerly)."""
+        global GRAPH_CAPTURES
+        dev = self.device
+        if dev not in _SIDE_STREAMS:
+            _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side, stream = _SIDE_STREAMS[dev], torch.cuda.current_stream(dev)
+        side.wait_stream(stream)
+        try:
+            with torch.cuda.stream(side):
+                g1, (ops1, nk1, c) = self._graph(lambda: self._seg1(is_last, _no_lap))
+                s1 = self.sorted[0].unbind(0)
+                g2, (ops2, nk2, c) = self._graph(lambda: self._seg2(is_last, s1, c, _no_lap))
+                s2 = self.sorted[1].unbind(0)
+                g3, _ = self._graph(lambda: self._seg3(is_last, s2, c, _no_lap))
+        except trace.CaptureRefused:
+            self.refused = True
+            _GRAPHS[self.key] = _EAGER
+            return None
+        finally:
+            stream.wait_stream(side)
+        GRAPH_CAPTURES += 3
+        # `c` holds every tensor the graphs pass on, kept for their lifetime
+        self.graphs[is_last] = (g1, ops1, nk1, g2, ops2, nk2, g3, c)
+        return self.graphs[is_last]
+
+    def _replay(self, g1, ops1, nk1, g2, ops2, nk2, g3, c):
+        global GRAPH_REPLAYS
+        g1.replay()
+        _sort(ops1, nk1, self.sorted[0])
+        g2.replay()
+        _sort(ops2, nk2, self.sorted[1])
+        g3.replay()
+        GRAPH_REPLAYS += 3
+        trace.count_graph_layers(1)
+
+    # ----------------------------------------------------- the body, in three
+    def _full(self, shape, value, dtype=I32):
+        return torch.full(shape, value, dtype=dtype, device=self.device)
+
+    def _false(self, shape):
+        return torch.zeros(shape, dtype=torch.bool, device=self.device)
+
+    def _seg1(self, is_last, lap):
+        """The layer's root merge, branching variable, rough bounds and
+        expansion; returns sort-1's operands (`sort_operands`), its key
+        count and what the next segment reads."""
         lap("ddo.layer.rub")
-        is_last = i == n - 1
+        spec, inp, cur, i = self.spec, self.inp, self.cur, self.i
+        problem, rlx = spec.bundle.problem, spec.bundle.relaxation
+        pdata, rdata, kdata = inp["datas"]
+        K, W, D, C = self.K, self.W, self.D, self.C
 
         # root layer materializes at depth `root_depth` (clean.rs:383-405)
-        is_root = (root_depths == i)[:, None]  # [K, 1]
-        c_state = tmap(lambda r, c: torch.where(_bcast(is_root, c), r, c),
-                       r_state, cur["state"])
-        c_val = torch.where(is_root, r_val, cur["val"])
-        c_mask = torch.where(is_root, r_mask, cur["mask"])
-        c_exact = torch.where(is_root, r_mask, cur["exact"])
+        is_root = (inp["root_depths"] == i)[:, None]  # [K, 1]
+        c_state = tmap(lambda r, x: torch.where(_bcast(is_root, x), r, x),
+                       self.r_state, cur["state"])
+        c_val = torch.where(is_root, self.r_val, cur["val"])
+        c_mask = torch.where(is_root, self.r_mask, cur["mask"])
+        c_exact = torch.where(is_root, self.r_mask, cur["exact"])
         c_relaxed = cur["relaxed"] & ~is_root
         c_bp = torch.where(is_root, -1, cur["bp"])
         c_bd = torch.where(is_root, 0, cur["bd"])
         c_bs = cur["bs"] & ~is_root
-        c_ebp = torch.where(is_root, r_mask, cur["ebp"])
+        c_ebp = torch.where(is_root, self.r_mask, cur["ebp"])
         c_wlp = cur["wlp"] & ~is_root
         c_wlth = torch.where(is_root, INF, cur["wlth"])
         flat_state = _flat(c_state, 2)
 
         # the branched variable, one per lane: int64 [K]
-        if dynamic_order:
-            var = problem.next_variable(pdata, i, c_state, c_mask, assigned).long()
-            var_of[:, i] = var
+        if self.dynamic_order:
+            var = problem.next_variable(pdata, i, c_state, c_mask, self.assigned).long()
+            _put(self.var_of, self.i1, var)
             col = var[:, None]
-            assigned = assigned.scatter(
-                1, col, assigned.gather(1, col) | c_mask.any(dim=1, keepdim=True))
+            self.assigned.scatter_(
+                1, col, self.assigned.gather(1, col) | c_mask.any(dim=1, keepdim=True))
         else:
-            var = order_t[i].expand(K)
+            var = inp["order"].index_select(0, self.i1).expand(K)
         var_b = var.repeat_interleave(W)
 
         # --- RUB pruning (clean.rs:360-365) --------------------------------
         rub = torch.where(c_mask, rlx.rub(rdata, flat_state, i).view(K, W), INF)
-        expand_ok = c_mask & (sat_add(c_val, rub) > best_lb[:, None])
-        if long_arcs:
+        expand_ok = c_mask & (sat_add(c_val, rub) > inp["best_lb"][:, None])
+        if self.long_arcs:
             # only the impacted rows really branch here
             imp = problem.is_impacted_by(pdata, flat_state, var_b)  # [K*W]
-            expanded += (expand_ok & imp.view(K, W)).sum(dim=1, dtype=I32)
+            self.expanded += (expand_ok & imp.view(K, W)).sum(dim=1, dtype=I32)
         else:
-            expanded += expand_ok.sum(dim=1, dtype=I32)
+            self.expanded += expand_ok.sum(dim=1, dtype=I32)
 
         # --- expansion of K*W rows x D slots --------------------------------
         lap("ddo.layer.expand")
         nstate, cost, dval, valid = problem.step(pdata, flat_state, var_b, i)
-        if long_arcs:
+        f_skip = None
+        if self.long_arcs:
             # an unimpacted row: one identity candidate at domain slot 0
             keep = imp[:, None]  # [K*W, 1]
-            valid = torch.where(keep, valid, slot0)
-            nstate = tmap(lambda real, cur: torch.where(
-                _bcast(keep, real), real, cur[:, None]), nstate, flat_state)
+            valid = torch.where(keep, valid, self.slot0)
+            nstate = tmap(lambda real, x: torch.where(
+                _bcast(keep, real), real, x[:, None]), nstate, flat_state)
             cost = torch.where(keep, cost, 0)
             f_skip = (~keep).expand(K * W, D).reshape(K, C)
         # flatten candidates: append order = (parent slot, domain slot)
@@ -312,18 +564,37 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
         f_keys = _cols(problem.pack, f_state, (K, C))  # [K, C, Kk]
         Kk = f_keys.shape[2]
         key_ops = [(~f_valid).to(I32)] + [f_keys[:, :, k] for k in range(Kk)] \
-            + [-f_val, neg_idxs]
-        f_rank = _cols(lambda s: ranking.score(kdata, s), f_state, (K, C))
+            + [-f_val, self.neg_idxs]
+        f_rank = _cols(lambda s: spec.bundle.ranking.score(kdata, s), f_state, (K, C))
         R = f_rank.shape[2]
-        pay = [f_dval, f_pexact.to(I32)] + ([f_skip.to(I32)] if long_arcs else []) \
+        pay = [f_dval, f_pexact.to(I32)] + ([f_skip.to(I32)] if self.long_arcs else []) \
             + [f_rank[:, :, r] for r in range(R)]
-        if use_dom:
-            f_dkey = _cols(dom.key_cols, f_state, (K, C))
-            f_dcoord = _cols(dom.coord_cols, f_state, (K, C))
-            KK, CC = f_dkey.shape[2], f_dcoord.shape[2]
-            pay += [f_dkey[:, :, k] for k in range(KK)]
-            pay += [f_dcoord[:, :, k] for k in range(CC)]
-        s1 = _sort(key_ops + pay, len(key_ops))
+        f_dkey = f_dcoord = None
+        if self.use_dom:
+            f_dkey = _cols(spec.dominance.key_cols, f_state, (K, C))
+            f_dcoord = _cols(spec.dominance.coord_cols, f_state, (K, C))
+            pay += [f_dkey[:, :, k] for k in range(f_dkey.shape[2])]
+            pay += [f_dcoord[:, :, k] for k in range(f_dcoord.shape[2])]
+        return [o.to(I32) for o in key_ops + pay], len(key_ops), dict(
+            c_state=c_state, c_val=c_val, c_mask=c_mask, c_exact=c_exact,
+            c_relaxed=c_relaxed, c_bp=c_bp, c_bd=c_bd, c_bs=c_bs, c_ebp=c_ebp, c_wlp=c_wlp,
+            c_wlth=c_wlth, rub=rub, var=var, f_valid=f_valid, f_cost=f_cost, f_dval=f_dval,
+            f_state=f_state, f_skip=f_skip, f_dkey=f_dkey, f_dcoord=f_dcoord, Kk=Kk, R=R)
+
+    def _next_row(self, table):
+        """Row i + 1 of an [n+1, ...] filter table."""
+        return table.index_select(0, self.i1 + 1).squeeze(0)
+
+    def _seg2(self, is_last, s1, c, lap):
+        """Sort-1's runs (dedup), the filter tables and the restrict/relax
+        decision; returns sort-2's operands, its key count and what the
+        last segment reads."""
+        spec, inp, i = self.spec, self.inp, self.i
+        comp, dom = spec.comp_type, spec.dominance
+        K, W, C, idxs = self.K, self.W, self.C, self.idxs
+        Kk, R = c["Kk"], c["R"]
+        full, false = self._full, self._false
+
         kv = torch.stack(s1[1 : 1 + Kk], dim=2)
         perm = -s1[2 + Kk]
         valid_s = s1[0] == 0
@@ -331,16 +602,18 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
         o = 3 + Kk
         pexact_s = s1[o + 1].bool()
         o += 2
-        if long_arcs:
+        skip_s = None
+        if self.long_arcs:
             skip_s = s1[o].bool()
             o += 1
         s_rank = torch.stack(s1[o : o + R], dim=2)
         o += R
-        if use_dom:
-            s_dkey = torch.stack(s1[o : o + KK], dim=2) if KK else f_dkey
-            s_dcoord = torch.stack(s1[o + KK : o + KK + CC], dim=2) if CC else f_dcoord
+        if self.use_dom:
+            KK, CC = c["f_dkey"].shape[2], c["f_dcoord"].shape[2]
+            s_dkey = torch.stack(s1[o : o + KK], dim=2) if KK else c["f_dkey"]
+            s_dcoord = torch.stack(s1[o + KK : o + KK + CC], dim=2) if CC else c["f_dcoord"]
 
-        first = torch.ones((K, C), dtype=torch.bool, device=device)
+        first = torch.ones((K, C), dtype=torch.bool, device=self.device)
         first[:, 1:] = (kv[:, 1:] != kv[:, :-1]).any(dim=2)
         head = valid_s & first
         # exactness = AND over the run's parents: no inexact member
@@ -358,8 +631,8 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
         pruned = false((K, C))
         ptheta = full((K, C), INF)
         pci = false((K, C))
-        if cache_tab is not None and not is_last:
-            tk, tv, tm = (cache_tab[x][i + 1] for x in ("keys", "vals", "valid"))
+        if inp["cache_tab"] is not None and not is_last:
+            tk, tv, tm = (self._next_row(inp["cache_tab"][x]) for x in ("keys", "vals", "valid"))
             eq = (kv[:, :, None, :] == tk[None, None]).all(dim=3) & tm
             cth = torch.where(eq, tv, NEG_INF).amax(dim=2)
             pc = head & eq.any(dim=2) & (val_s <= cth)
@@ -368,8 +641,8 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
             # parents of a cache-pruned INEXACT node join the frontier
             # cutset (clean.rs:586-606 visits pruned nodes too)
             pci = pc & ~slot_exact
-        if use_dom_snap and not is_last:
-            dk, dc, dv, dm = (dom_tab[x][i + 1]
+        if self.use_dom_snap and not is_last:
+            dk, dc, dv, dm = (self._next_row(inp["dom_tab"][x])
                               for x in ("keys", "coords", "vals", "valid"))
             km = (s_dkey[:, :, None, :] == dk[None, None]).all(dim=3) & dm
             ge = (dc[None, None] >= s_dcoord[:, :, None, :]).all(dim=3)
@@ -394,17 +667,36 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
         # --- squash: restrict (clean.rs:802-815) / relax (clean.rs:817-876).
         # The terminal layer is never squashed below the buffer width W.
         lap("ddo.layer.squash")
+        eff_width = inp["eff_width"]
         cap = torch.full_like(eff_width, W) if is_last else eff_width
         no = false((K,))
         need_restrict = (U > cap) if comp == CompilationType.RESTRICTED else no
-        need_relax = ((U > cap) & (i + 1 - root_depths >= 2)) \
+        need_relax = ((U > cap) & (i + 1 - inp["root_depths"] >= 2)) \
             if comp == CompilationType.RELAXED else no
-        squashed = need_relax | need_restrict
 
         # promising first, pruned/invalid last
         q_keys = [(~surv).to(I32), -val_s] + [-s_rank[:, :, r] for r in range(R)] \
-            + [neg_idxs]
-        s2 = _sort(q_keys, len(q_keys))
+            + [self.neg_idxs]
+        return [o.to(I32) for o in q_keys], len(q_keys), dict(
+            c, kv=kv, perm=perm, val_s=val_s, skip_s=skip_s, head=head,
+            slot_exact=slot_exact, pruned=pruned, ptheta=ptheta, pci=pci, surv=surv, U=U,
+            cap=cap, need_restrict=need_restrict, need_relax=need_relax)
+
+    def _seg3(self, is_last, s2, c, lap):
+        """The kept, merged and pruned nodes from sort-2, the edge remap, the
+        next layer and its within-layer dominance: writes layer i into the
+        planes and edges, the next layer into the carry, and advances i."""
+        spec, inp, i, i1 = self.spec, self.inp, self.i, self.i1
+        problem, rlx, comp = spec.bundle.problem, spec.bundle.relaxation, spec.comp_type
+        dom, rdata = spec.dominance, inp["datas"][1]
+        K, W, D, C, n, q, idxs = self.K, self.W, self.D, self.C, self.n, self.q, self.idxs
+        full, false, P, E = self._full, self._false, self.P, self.E
+        need_relax, need_restrict, cap = c["need_relax"], c["need_restrict"], c["cap"]
+        surv, head, perm, kv, U = c["surv"], c["head"], c["perm"], c["kv"], c["U"]
+        f_state, f_valid, f_cost, f_dval = c["f_state"], c["f_valid"], c["f_cost"], c["f_dval"]
+        c_state, c_val = c["c_state"], c["c_val"]
+        squashed = need_relax | need_restrict
+
         so_val = -s2[1]
         order2 = -s2[-1]
         so_valid = s2[0] == 0
@@ -416,8 +708,8 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
 
         # --- edge remap: every candidate takes its run head's code
         slot_code = (rank_of + (kept.to(I32) << 27) + (merge_mask.to(I32) << 28)
-                     + (pruned.to(I32) << 29) + (pci.to(I32) << 30))
-        code_s, ptheta_s = seg.seg_broadcast_at_head(head, (slot_code, ptheta))
+                     + (c["pruned"].to(I32) << 29) + (c["pci"].to(I32) << 30))
+        code_s, ptheta_s = seg.seg_broadcast_at_head(head, (slot_code, c["ptheta"]))
         e_code = seg.scatter(perm, code_s)
         cand_ptheta = seg.scatter(perm, ptheta_s)
         f_mmask = seg.scatter(perm, merge_mask)
@@ -446,7 +738,7 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
                 _flat(f_state, 2),
                 _flat(tmap(lambda m: m[:, None].expand((K, C) + tuple(m.shape[1:])),
                            merged_state), 2),
-                f_dval.reshape(-1), f_cost.reshape(-1), var.repeat_interleave(C),
+                f_dval.reshape(-1), f_cost.reshape(-1), c["var"].repeat_interleave(C),
             ).to(I32).reshape(K, C)
             e_cost = torch.where(e_merge, rcost, f_cost)
         else:
@@ -457,9 +749,9 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
 
         # theta of filter-pruned children propagates to parents
         # (clean.rs:502,522-528): per-parent min of (theta - cost)
-        if filtering:
+        if self.filtering:
             ep = torch.where(e_pruned, sat_sub(cand_ptheta, f_cost), INF)
-            P["eptheta"][:, i] = ep.view(K, W, D).amin(dim=2)
+            _put(P["eptheta"], i1, ep.view(K, W, D).amin(dim=2))
 
         # merged node aggregates (append_edge_to!, clean.rs:199-219)
         m_edge_val = torch.where(
@@ -477,21 +769,21 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
         lap("ddo.layer.materialize")
         width_used = torch.where(squashed, torch.where(need_relax, limit + 1, cap),
                                  torch.clamp(U, max=W))
-        overflow |= (U > W) & ~squashed
+        self.overflow |= (U > W) & ~squashed
         order2_W = order2[:, :W].long()
         fidx_W = perm.gather(1, order2_W)
         q_valid = (q < width_used[:, None]) & so_valid[:, :W]
         nl_val = so_val[:, :W]
-        nl_exact = slot_exact.gather(1, order2_W)
+        nl_exact = c["slot_exact"].gather(1, order2_W)
         nl_bp = torch.where(so_valid[:, :W], fidx_W // D, -1)
         nl_bd = f_dval.gather(1, fidx_W.long())
         # a node whose best in-edge is a long (skip) arc
-        nl_bs = skip_s.gather(1, order2_W) if long_arcs else false((K, W))
+        nl_bs = c["skip_s"].gather(1, order2_W) if self.long_arcs else false((K, W))
         nl_state = tmap(lambda x: seg.take_rows(x, fidx_W), f_state)
 
         # overrides for the merged node
         is_mpos = need_relax[:, None] & (q == merged_pos[:, None])
-        rec_val = val_s.gather(1, recycled_slot)[:, 0]
+        rec_val = c["val_s"].gather(1, recycled_slot)[:, 0]
         mv_new = torch.where(recycled[:, None], torch.maximum(nl_val, m_val[:, None]),
                              m_val[:, None])
         take_medge = has_medge & torch.where(recycled, m_val >= rec_val, True)
@@ -499,8 +791,8 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
         use_m = is_mpos & take_medge[:, None]
         nl_bp = torch.where(use_m, m_bp[:, None], nl_bp)
         nl_bd = torch.where(use_m, m_bd[:, None], nl_bd)
-        if long_arcs:
-            m_bs = has_medge & f_skip.gather(1, m_best)[:, 0]
+        if self.long_arcs:
+            m_bs = has_medge & c["f_skip"].gather(1, m_best)[:, 0]
             nl_bs = torch.where(use_m, m_bs[:, None], nl_bs)
         # the merged node is never exact, recycled or not (node_flags.rs:88-90)
         nl_exact = nl_exact & ~is_mpos
@@ -518,7 +810,7 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
         lap("ddo.layer.dominance")
         wl_pruned = false((K, W))
         wl_ptheta = full((K, W), INF)
-        if use_dom and not is_last:
+        if self.use_dom and not is_last:
             nv = torch.where(q_valid, nl_val, NEG_INF)
             w_dkey = _cols(dom.key_cols, nl_state, (K, W))
             w_dcoord = _cols(dom.coord_cols, nl_state, (K, W))
@@ -549,33 +841,30 @@ def _compile_lanes(spec, datas, order, root_states, root_values, root_depths, be
 
         # exact-best-path flag, incrementally (clean.rs:643-655)
         lap("ddo.layer.materialize")
-        par_ebp = c_ebp.gather(1, nl_bp.clamp(0, W - 1).long()) & (nl_bp >= 0)
+        par_ebp = c["c_ebp"].gather(1, nl_bp.clamp(0, W - 1).long()) & (nl_bp >= 0)
         nl_ebp = (nl_exact | (~nl_relaxed & par_ebp)) & q_valid
 
         # LEL (clean.rs:796-800): the layer before the first squashed one
-        lel = torch.where(squashed & (lel == n + 1), i, lel)
+        self.lel.copy_(torch.where(squashed & (self.lel == n + 1), i.to(I32), self.lel))
 
         # frontier-cutset ingredient (clean.rs:586-606): an inexact child
         ch_inexact = e_valid & ~exact_for_hic.gather(1, e_child.clamp(0, W - 1).long())
-        P["hic"][:, i] = (ch_inexact | e_pci).view(K, W, D).any(dim=2)
+        _put(P["hic"], i1, (ch_inexact | e_pci).view(K, W, D).any(dim=2))
 
-        _write_layer(P["state"], i, c_state)
-        for name, val in (("val", c_val), ("mask", c_mask), ("exact", c_exact),
-                          ("relaxed", c_relaxed), ("rub", rub), ("bp", c_bp),
-                          ("bd", c_bd), ("bs", c_bs), ("wlp", c_wlp),
-                          ("wlth", c_wlth)):
-            P[name][:, i] = val
-        E["child"][:, i] = e_child
-        E["cost"][:, i] = e_cost
-        E["valid"][:, i] = e_valid
-        cur = dict(state=nl_state, val=nl_val, mask=q_valid, exact=nl_exact,
+        tmap(lambda p, v: _put(p, i1, v), P["state"], c_state)
+        for name, val in (("val", c_val), ("mask", c["c_mask"]), ("exact", c["c_exact"]),
+                          ("relaxed", c["c_relaxed"]), ("rub", c["rub"]), ("bp", c["c_bp"]),
+                          ("bd", c["c_bd"]), ("bs", c["c_bs"]), ("wlp", c["c_wlp"]),
+                          ("wlth", c["c_wlth"])):
+            _put(P[name], i1, val)
+        for name, val in (("child", e_child), ("cost", e_cost), ("valid", e_valid)):
+            _put(E[name], i1, val)
+        nxt = dict(state=nl_state, val=nl_val, mask=q_valid, exact=nl_exact,
                    relaxed=nl_relaxed, bp=nl_bp, bd=nl_bd, bs=nl_bs & q_valid,
                    ebp=nl_ebp, wlp=wl_pruned, wlth=wl_ptheta)
-    if chunked:
-        poll(n)
-    lap("ddo.finalize")
-    return finalize(spec, datas, var_of, cur, P, E, lel, expanded, overflow,
-                    best_lb, root_depths, use_dom)
+        for name, val in nxt.items():
+            tmap(lambda dst, src: dst.copy_(src), self.cur[name], val)
+        i.add_(1)
 
 
 def finalize(spec: DDSpec, datas, var_of, term, P, E, lel, expanded, overflow,

@@ -82,7 +82,8 @@ class Alp(Problem):
         off = (np.arange(n)[None, :] // max(1, self.nb_runways)) * np.diag(self.sep)[:, None]
         self._host = dict(target=self.target, latest=self.latest, classes=self.classes,
                           sep=self.sep, next=nxt, min_sep_to=self.min_sep_to,
-                          rub_tsort=tsort, rub_off=off)
+                          rub_tsort=tsort, rub_off=off,
+                          queueing_rub=np.asarray(self.queueing_rub))
         self._data = {}
 
     @classmethod
@@ -174,7 +175,7 @@ class AlpRelax(Relaxation):
 
     def rub(self, data, states, depth):
         """ddo_tpu's per-class queueing bound where it is admissible
-        (`Alp.queueing_rub`), else 0 (model.rs:250-252).
+        (`Alp.queueing_rub`, read from the data), else 0 (model.rs:250-252).
 
         Per class c with m planes still to land: in any completion the
         k-th smallest class-c landing is >= b_c + floor((k-1)/R) *
@@ -184,8 +185,6 @@ class AlpRelax(Relaxation):
         add."""
         pb = self.problem
         rem = states["rem"]
-        if not pb.queueing_rub:
-            return torch.zeros(rem.shape[0], dtype=I32, device=rem.device)
         C, n = pb.nb_classes, pb.nb_variables
         rw_time, rw_class = states["rw_time"], states["rw_class"]
         known = rw_class[:, None, :]  # [B, 1, R]
@@ -199,7 +198,7 @@ class AlpRelax(Relaxation):
         inplay = torch.arange(n, device=rem.device) < rem[:, :, None]
         delay = torch.where(inplay, torch.clamp(b[:, :, None] + data["rub_off"] - tsort, min=0),
                             0)
-        return -delay.sum(dim=(1, 2), dtype=I32)
+        return torch.where(data["queueing_rub"] != 0, -delay.sum(dim=(1, 2), dtype=I32), 0)
 
 
 class AlpRanking(StateRanking):

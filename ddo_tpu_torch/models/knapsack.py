@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ddo_tpu_torch.core.problem import Dominance, Problem, Relaxation, StateRanking
+from ddo_tpu_torch.core.problem import (Dominance, Problem, Relaxation, StateRanking,
+                                        depth_row)
 
 I32 = torch.int32
 
@@ -100,10 +101,10 @@ class KPRelax(Relaxation):
         # capacity, then one fractional item (integer floor)
         pw = data["prefix_w"]
         cap = states["capacity"]
-        base_w = pw[depth]
+        base_w = depth_row(pw, depth)
         # m = (# prefix entries <= target) - 1, never < depth (cap >= 0)
         m = torch.searchsorted(pw, base_w + cap, right=True) - 1
-        whole = data["prefix_p"][m] - data["prefix_p"][depth]
+        whole = data["prefix_p"][m] - depth_row(data["prefix_p"], depth)
         rem = cap - (pw[m] - base_w)
         frac = torch.div(rem * data["ord_p"][m],
                          torch.clamp(data["ord_w"][m], min=1),

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ddo_tpu_torch.core.problem import Problem, Relaxation, StateRanking
+from ddo_tpu_torch.core.problem import Problem, Relaxation, StateRanking, depth_row
 
 I32 = torch.int32
 T, F = 1, -1
@@ -140,7 +140,7 @@ class Max2Sat(Problem):
         sum_t = torch.where(rem, sat_t, 0).sum(dim=1) + data["unit_t"][var] + pos(sk)
         sum_f = torch.where(rem, sat_f, 0).sum(dim=1) + data["unit_f"][var] + pos(-sk)
         cost = torch.stack([sum_t, sum_f], dim=1).to(I32)
-        dval = torch.tensor([T, F], dtype=I32, device=s.device).expand_as(cost)
+        dval = torch.where(torch.arange(2, device=s.device) == 0, T, F).to(I32).expand_as(cost)
         return {"benef": ns}, cost, dval, torch.ones_like(cost, dtype=torch.bool)
 
     def pack(self, states):
@@ -176,8 +176,8 @@ class Max2SatRelax(Relaxation):
     def rub(self, data, states, depth):
         """model.rs:240-250."""
         marginal = states["benef"].abs().sum(dim=1)
-        return (marginal + data["estimates"][depth] - data["initial"]
-                + data["nk"][depth]).to(I32)
+        return (marginal + depth_row(data["estimates"], depth) - data["initial"]
+                + depth_row(data["nk"], depth)).to(I32)
 
 
 class Max2SatRanking(StateRanking):

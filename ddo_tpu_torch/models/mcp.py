@@ -19,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ddo_tpu_torch.core.problem import Problem, Relaxation, StateRanking
+from ddo_tpu_torch.core.problem import (Problem, Relaxation, StateRanking, depth_row,
+                                        depth_select)
 from ddo_tpu_torch.utils import trace
 
 I32 = torch.int32
@@ -91,10 +92,10 @@ class Mcp(Problem):
         cost_s = torch.clamp(-sk, min=0) + torch.where(rem & (prod <= 0), mn, 0).sum(dim=1)
         cost_t = torch.clamp(sk, min=0) + torch.where(rem & (prod >= 0), mn, 0).sum(dim=1)
         cost = torch.stack([cost_s, cost_t], dim=1).to(I32)
+        # the root branches only on S (symmetry), at no cost
+        cost = depth_select(depth == 0, torch.zeros_like(cost), cost)
         valid = torch.ones((B, 2), dtype=torch.bool, device=s.device)
-        if depth == 0:  # the root branches only on S (symmetry), at no cost
-            cost = torch.zeros_like(cost)
-            valid[:, 1] = False
+        valid[:, 1] = depth != 0
         return {"benef": ns.to(I32)}, cost, dval.expand(B, 2), valid
 
     def pack(self, states):
@@ -128,8 +129,8 @@ class McpRelax(Relaxation):
         s = states["benef"]
         rem = torch.arange(s.shape[1], device=s.device) >= depth
         marginal = torch.where(rem, s.abs(), 0).sum(dim=1)
-        return (marginal + data["estimates"][depth] - data["vr"]
-                + data["nk"][depth]).to(I32)
+        return (marginal + depth_row(data["estimates"], depth) - data["vr"]
+                + depth_row(data["nk"], depth)).to(I32)
 
 
 class McpRanking(StateRanking):

@@ -88,7 +88,7 @@ class Psp(Problem):
         if device not in self._data:
             d = {k: torch.as_tensor(v, dtype=I32, device=device) for k, v in self._host.items()}
             d["demand_times"] = torch.as_tensor(self.demands > 0, device=device)
-            d["min_stock"] = int(self.stocking.min())
+            d["min_stock"] = torch.as_tensor(self.stocking.min(), dtype=I32, device=device)
             self._data[device] = d
         return self._data[device]
 

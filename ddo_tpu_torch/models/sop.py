@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ddo_tpu_torch.core.problem import Problem, Relaxation, StateRanking
+from ddo_tpu_torch.core.problem import Problem, Relaxation, StateRanking, depth_select
 from ddo_tpu_torch.models.tsptw import TsptwWidth, merge_sets, singletons_np
 from ddo_tpu_torch.ops import bitset as bs
 from ddo_tpu_torch.utils import trace
@@ -77,10 +77,9 @@ class Sop(Problem):
         rem = bs.to_bits(states["must"] | states["maybe"], n)
         # can_schedule (model.rs): no predecessor of j still to schedule
         sched_ok = (rem.to(torch.float32) @ data["pred_t"]) == 0  # [B, n]
-        if depth == self.nb_variables - 1:
-            valid = (torch.arange(n, device=rem.device) == n - 1).expand_as(rem)
-        else:
-            valid = rem & sched_ok
+        valid = depth_select(depth == self.nb_variables - 1,
+                             (torch.arange(n, device=rem.device) == n - 1).expand_as(rem),
+                             rem & sched_ok)
         dmin = torch.where(prev_bits[:, :, None], data["dist"], INF).amin(dim=1)
         without = data["without"]
         nstate = {"prev": data["single"].expand((rem.shape[0],) + tuple(without.shape)),

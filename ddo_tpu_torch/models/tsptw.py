@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ddo_tpu_torch.core.heuristics import WidthHeuristic
-from ddo_tpu_torch.core.problem import Dominance, Problem, Relaxation, StateRanking
+from ddo_tpu_torch.core.problem import (Dominance, Problem, Relaxation, StateRanking,
+                                        depth_select)
 from ddo_tpu_torch.ops import bitset as bs
 from ddo_tpu_torch.utils.num import INF, NEG_INF
 
@@ -110,11 +111,11 @@ class Tsptw(Problem):
         dmax = torch.where(pos_bits[:, :, None], dist, NEG_INF).amax(dim=1)
         # reachability: e_lo + min-dist <= latest (model.rs can_move_to)
         reach = e_lo + dmin <= data["twl"]
-        if depth == n - 1:
-            valid = (torch.arange(n, device=reach.device) == 0) & reach[:, :1]
-        else:
-            all_must_ok = torch.where(must_bits, reach, True).all(dim=1, keepdim=True)
-            valid = all_must_ok & (must_bits | (maybe_bits & reach))
+        # at depth n - 1 only the depot
+        all_must_ok = torch.where(must_bits, reach, True).all(dim=1, keepdim=True)
+        valid = depth_select(depth == n - 1,
+                             (torch.arange(n, device=reach.device) == 0) & reach[:, :1],
+                             all_must_ok & (must_bits | (maybe_bits & reach)))
 
         amin, amax = e_lo + dmin, e_hi + dmax
         twe, twl = data["twe"], data["twl"]

@@ -203,13 +203,15 @@ def _lib():
     return lib
 
 
-def multi_sort_cuda(operands, num_keys, route=None):
+def multi_sort_cuda(operands, num_keys, route=None, out=None):
     """Kernel K1 on CUDA tensors (any strides), with one output allocation
     (and, on the "merge" route past one tile, one int32 [2, P + 1, L, C]
     workspace from the caching allocator); raises on what the kernel does
     not take.  `route` ("regs", "perm" or "merge") overrides
     `lane_sort_route`'s choice, so that a comparison can run several on
-    one shape."""
+    one shape.  `out`, a contiguous int32 [n, L, C] tensor on the
+    operands' device, takes the sorted operands in place of the output
+    allocation (the compile's layer graphs read them there)."""
     global KERNEL_LAUNCHES
     n = len(operands)
     if n > MAX_OPERANDS:
@@ -227,7 +229,12 @@ def multi_sort_cuda(operands, num_keys, route=None):
             raise ValueError("lane_sort: every operand must be on one CUDA device")
         if o.dtype != torch.int32 or tuple(o.shape) != (L, C):
             raise ValueError(f"lane_sort: operands must be int32 [{L}, {C}]")
-    out = torch.empty((n, L, C), dtype=torch.int32, device=first.device)
+    if out is None:
+        out = torch.empty((n, L, C), dtype=torch.int32, device=first.device)
+    elif (out.dtype != torch.int32 or tuple(out.shape) != (n, L, C)
+          or out.device != first.device or not out.is_contiguous()):
+        raise ValueError(f"lane_sort: out must be a contiguous int32 [{n}, {L}, {C}] "
+                         "tensor on the operands' device")
     if L == 0 or C == 0:
         return tuple(out.unbind(0))
     args = (_SmallArgs if n <= SMALL_OPERANDS else _LargeArgs)()
@@ -255,13 +262,15 @@ def multi_sort_cuda(operands, num_keys, route=None):
     return tuple(out.unbind(0))
 
 
-def multi_sort(operands, num_keys):
-    """Engine sort: K1 for CUDA tensors, the plain version for CPU ones."""
+def multi_sort(operands, num_keys, out=None):
+    """Engine sort: K1 for CUDA tensors (into `out` where given, see
+    `multi_sort_cuda`), the plain version for CPU ones."""
     operands = tuple(operands)
     if operands[0].is_cuda:
-        return multi_sort_cuda(operands, num_keys)
-    if operands[0].device.type != "cpu":
-        raise ValueError(f"multi_sort: no route for device {operands[0].device}")
+        return multi_sort_cuda(operands, num_keys, out=out)
+    if operands[0].device.type != "cpu" or out is not None:
+        raise ValueError(f"multi_sort: no route for device {operands[0].device}"
+                         + (" with out=" if out is not None else ""))
     return multi_sort_plain(operands, num_keys)
 
 

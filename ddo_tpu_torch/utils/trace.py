@@ -17,12 +17,16 @@ stream, reads of a CUDA tensor on the host (`.cpu()`, `int()`), sizes
 that only the device knows (`torch.nonzero`) and copies from host arrays
 to the device, which from pageable memory wait for the stream.  They are
 counted on the CPU too, where nothing waits, so a CPU run counts the
-waits of a card run.  `layers()` counts the layer-loop iterations of
-every compile.  A solve's share of each is the difference across it.
+waits of a card run.  A wait cannot be recorded into a CUDA graph: while
+the current stream captures, `wait` raises `CaptureRefused` instead, and
+the compile that captures runs that layer body eagerly (engine/mdd.py).
+`layers()` counts the layer-loop iterations of every compile,
+`graph_layers()` those replayed from CUDA graphs.  A solve's share of
+each is the difference across it.
 
 Recent solves.  `SOLVES` keeps the `SolverStats` of the last 1,024
 finished solves of the process, newest last (`solve_in` finds one by its
-start).  It and the two counters are the only state of this module.
+start).  It and the three counters are the only state of this module.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch
 
 #: the SolverStats of the most recent finished solves, newest last
 SOLVES = collections.deque(maxlen=1024)
-_counts = {"syncs": 0, "layers": 0}
+_counts = {"syncs": 0, "layers": 0, "graph_layers": 0}
 
 #: each phase of a solve: its profiler span (None: the compile, whose
 #: `compile_lanes` calls open their own)
@@ -58,9 +62,28 @@ def layers() -> int:
     return _counts["layers"]
 
 
+def graph_layers() -> int:
+    """Layer-loop iterations of this process replayed from CUDA graphs."""
+    return _counts["graph_layers"]
+
+
+class CaptureRefused(Exception):
+    """Raised by `wait` while the current CUDA stream captures a graph: a
+    graph cannot wait on the host, so its capture has to be given up."""
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False in a
+    process that has not initialized CUDA, without asking the driver)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
 def wait(fn, *args, **kw):
     """`fn(*args, **kw)`, a call that waits for the device's queued work
-    on a card, counted as one host sync."""
+    on a card, counted as one host sync; raises `CaptureRefused` instead
+    while the current stream captures."""
+    if capturing():
+        raise CaptureRefused(f"{getattr(fn, '__name__', fn)} waits on the device")
     _counts["syncs"] += 1
     return fn(*args, **kw)
 
@@ -68,6 +91,11 @@ def wait(fn, *args, **kw):
 def count_layers(n: int):
     """Add one compile's layer-loop iterations."""
     _counts["layers"] += n
+
+
+def count_graph_layers(n: int):
+    """Add layer-loop iterations replayed from CUDA graphs."""
+    _counts["graph_layers"] += n
 
 
 def solve_in(start: float, end: float):
@@ -135,15 +163,15 @@ class Phases:
     `Phases(stats)` to `stop()` (its first is "pop", the set-up), so the
     five phases add up to `total_s`; while a profiler records, less the
     cost of entering and leaving their spans, which no phase holds.
-    `stop()` fills `total_s`, `end_ns`, `layers` and `host_syncs` and
-    keeps a copy of the stats in `SOLVES`."""
+    `stop()` fills `total_s`, `end_ns`, `layers`, `graph_layers` and
+    `host_syncs` and keeps a copy of the stats in `SOLVES`."""
 
     def __init__(self, stats):
         self.stats = stats
         self.on = False
         self.span = None
         self.fields = ()
-        self.syncs, self.layers = host_syncs(), layers()
+        self.syncs, self.layers, self.graph_layers = host_syncs(), layers(), graph_layers()
         stats.start_ns = time.time_ns()
         stats.start = self.t = time.perf_counter()
 
@@ -174,5 +202,6 @@ class Phases:
         st.total_s = self.t - st.start
         st.end_ns = time.time_ns()
         st.layers += layers() - self.layers
+        st.graph_layers += graph_layers() - self.graph_layers
         st.host_syncs += host_syncs() - self.syncs
         SOLVES.append(copy.copy(st))

@@ -39,6 +39,13 @@ What changed from the JAX contract, and why:
     them per device so each is copied once.
   * Integers are int32 throughout (values, costs, decisions, ranking
     scores), and validity masks are bool, as in ddo_tpu.
+  * **`depth` may be a tensor.**  On a card the engine replays each layer
+    from CUDA graphs and hands `step`, `rub` and `next_variable` the layer
+    index as an int64 0-d tensor on the device; read a table's row with
+    `depth_row(table, depth)` and branch with `depth_select(cond, a, b)`,
+    never `table[depth]` or `int(depth)`, which would wait for the device.
+    For the same reason every value of the instance a hook reads comes
+    from `data(device)`, not from a Python attribute.
 """
 
 import argparse
@@ -48,6 +55,7 @@ import torch
 
 import ddo_tpu_torch
 from ddo_tpu_torch import FixedWidth, ModelBundle, Problem, Relaxation, StateRanking
+from ddo_tpu_torch.core.problem import depth_row
 
 I32 = torch.int32
 
@@ -147,7 +155,7 @@ class IntervalRelax(Relaxation):
 
     def rub(self, data, states, depth):
         # can never gain more than every remaining profit: int32 [B]
-        return data["suffix"][depth].repeat(states["free"].shape[0])
+        return depth_row(data["suffix"], depth).repeat(states["free"].shape[0])
 
 
 # ---------------------------------------------------------------------------

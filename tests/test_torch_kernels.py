@@ -137,6 +137,24 @@ def test_lane_sort_ties_on_card(C, nk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L,C,nk,npay", [(1, 512, 4, 4), (1, 5376, 11, 8), (4, 300, 9, 2)])
+def test_lane_sort_into_out_on_card(L, C, nk, npay):
+    """K1 writes into a given `out` on every route (the compile's layer
+    graphs read it there): the same sorted operands, as views of `out`;
+    an `out` of another shape, dtype or layout is refused."""
+    _card()
+    ops = [torch.from_numpy(o).cuda() for o in sort_operands(L, C, nk, npay, 90 + nk)]
+    out = torch.empty((nk + npay, L, C), dtype=torch.int32, device="cuda")
+    got = tsort.multi_sort(ops, nk, out=out)
+    for r, g, o in zip(tsort.multi_sort_plain(ops, nk), got, out.unbind(0)):
+        assert torch.equal(r, g) and g.data_ptr() == o.data_ptr()
+    strided = torch.empty((nk + npay, L, 2 * C), dtype=torch.int32, device="cuda")[..., ::2]
+    for bad in (out[:-1], out.to(torch.int64), strided):
+        with pytest.raises(ValueError, match="out must be"):
+            tsort.multi_sort_cuda(ops, nk, out=bad)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("route", ["regs", "perm"])
 def test_lane_sort_sentinel_keys_on_card(route):
     """Real keys equal to the pad rows' 2^31-1 never let a pad into the
@@ -279,8 +297,10 @@ def test_merge_plan(L, C, nk, plan):
 def test_lane_sort_wrapper_refusals():
     """What the K1 wrapper refuses, decided without a card: too many
     operands, a bad key count, a route the shape does not take, and CPU
-    tensors."""
+    tensors, also given to the engine's sort with an output buffer."""
     op = torch.zeros((2, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="with out="):
+        tsort.multi_sort([op], 1, out=torch.empty((1, 2, 16), dtype=torch.int32))
     with pytest.raises(ValueError, match="operands exceed"):
         tsort.multi_sort_cuda([op] * (tsort.MAX_OPERANDS + 1), 1)
     with pytest.raises(ValueError, match="num_keys"):
