@@ -35,6 +35,17 @@ Phases, each printing its own line(s):
      per lane where its plan takes a cluster, and with one node pass in
      flight where its plan keeps more), and the knapsack sorts' and
      one 141-operand call's host time per call;
+ 2b. kernel K3 (csrc/layer_tail.cu), the layer body's tail in three
+     parts, against its plain version on the card: one layer's
+     arguments, recorded from an eager relaxed compile of each path's own
+     model, instance, lanes and W (`K3_OF_PATH`: knapsack n=2000 and
+     TSPTW N60 in 128 lanes at W=256, max2sat at 135 variables at W=256,
+     the tutorial at W=8, ...), of the benchmark cells' one-lane shapes
+     (knapsack n=100, 512 candidates; TSPTW N20, 5,376) and of SOP with
+     380 jobs in one lane of 97,280, LCS 10 x 20 and SRFLP n=60; each
+     part bit-equal on every output and buffer, with its time, the plain
+     version's and its bound (the bytes it must read and write at 3.35
+     TB/s);
   3. the main path at real size: a seeded uncorrelated knapsack with
      n=2000 (Pisinger's knapPI_1 family), a restricted and a relaxed
      compile of 128 root lanes at W=256 bracketing the exact DP optimum,
@@ -130,9 +141,9 @@ knapsack (phases 3-4), MISP (6-7), max2sat and max-cut (8, one count
 each), TSPTW (9-10), tsptw_search (17), sop, srflp, lcs, psp and alp
 (11, one count each), device_loop (13: the device loop's own runs, each
 zeroed just before it and read just after), native (14), cli (15),
-wide (16), mesh (18) and tutorial (19); both kernels must have launched in each, and each kernel's
+wide (16), mesh (18) and tutorial (19); K1, K2 and K3 must have launched in each, and each kernel's
 count is also kept by route (K2's "stream" route's also by cluster
-size).  Each path's line also gives its layer-loop iterations, those
+size; K3's by part, with its replayed layers' runs).  Each path's line also gives its layer-loop iterations, those
 replayed from CUDA graphs and the graphs captured and replayed: the
 knapsack and TSPTW paths must replay layers, mcp and sop none (their
 layer bodies wait on the host).  Phases 5 and 12 are in no count.
@@ -507,6 +518,224 @@ def phase_kernels(torch, dev, extra_k1=(), parent=None):
         rows[("fused_backward", label)] = backward_row(torch, gen, dev, bwd, label, K, n, W, D,
                                                         reps, parent)
     return rows
+
+
+def k3_bytes(part, args):
+    """The bytes K3's part `part` must read and write for one layer, each
+    once: every [K, C] or [K, W] row it reads in full, the W rows of
+    sort-2's first operands and of the gathers it takes through them, the
+    rows it reads only for some candidates (the relaxed lanes' kept keys,
+    the merged edges' relaxed costs, the pruned edges' thetas) for those
+    alone, one row of each layer plane it writes, and its outputs."""
+    nb = lambda x: 0 if x is None else x.numel() * x.element_size()
+    if part == "remap":
+        (t,) = args
+        ins = [t[k] for k in ("neg_order", "surv", "head", "perm", "pruned", "pci", "ptheta")]
+        return sum(map(nb, ins)) + 14 * t["surv"].numel()
+    if part == "edges":
+        i, t, a, merged_key, rcost, layer, P, E, lel, overflow = args
+        K, C = t["surv"].shape
+        W = layer["val"].shape[1]
+        relax = t["need_relax"][:, None]
+        code, f_valid = a.e_code, t["f_valid"]
+        full = [a.e_code, f_valid, t["f_cost"]]
+        # a relaxed lane reads `kept` in full and the keys of its kept rows
+        # (at most W) to find the merged node's twin
+        some = int(relax.sum()) * C + 4 * int((a.kept & relax).sum()) * merged_key.shape[1]
+        if rcost is not None:  # the merged edges' relaxed costs
+            some += 4 * int((f_valid & ((code & (1 << 28)) != 0) & relax).sum())
+        if P.get("eptheta") is not None:  # the pruned edges' thetas
+            some += 4 * int((f_valid & ((code & (1 << 29)) != 0)).sum())
+        # W rows: sort-2's first three operands, perm, slot_exact, skip_s,
+        # f_dval through them; the layer's rows
+        at_w = 4 * 4 + 1 + (1 if t.get("skip_s") is not None else 0) + 4
+        planes = sum(nb(x) for x in layer.values())
+        written = 9 * C + (4 if P.get("eptheta") is not None else 0) * W + W  # E, eptheta, hic
+        return (sum(map(nb, full)) + some + K * W * at_w + 2 * planes + K * written
+                + 21 * K * W)
+    i, nxt, w_dkey, w_dcoord, use_value, c_ebp, cur = args
+    K, W = nxt.valid.shape
+    return (sum(nb(x) for x in nxt) - nb(nxt.fidx) - nb(nxt.fresh) + nb(w_dkey)
+            + nb(w_dcoord) + nb(c_ebp) + sum(nb(x) for k, x in cur.items() if k != "state"))
+
+
+# K3's cases: (label, lanes, W, layer recorded).  The benchmark cells'
+# one-lane shapes, then each path's own compile (`K3_OF_PATH`), then the
+# widest shapes K1 is checked at that no path compiles.  A case records a
+# layer no deeper than half its instance's variables.
+K3_CASES = [
+    ("kp", 1, WIDTH, 50),  # kp-uncorr-n100
+    ("tsptw", 1, WIDTH, 10),  # tsptw-n20w40
+    ("kp2000", K_LANES, WIDTH, 50),
+    ("misp200", K_LANES, WIDTH, 50),
+    ("max2sat16", SMALL_BATCH, SMALL_W, 8),
+    ("mcp16", SMALL_BATCH, SMALL_W, 8),
+    ("tsptw60", K_LANES, WIDTH, 10),
+    *[(f"{name}_small", SMALL_MODELS_BATCH, SMALL_MODELS_W, 4)
+      for name in ("sop", "srflp", "lcs", "psp", "alp")],
+    ("misp60", K_LANES, WIDTH, 20),
+    ("native_kp", NATIVE_BATCH, NATIVE_W, 50),
+    ("cli_kp", CLI_BATCH, CLI_W, 25),
+    ("max2sat135_w256", 4, WIDTH, 20),
+    ("mesh_misp60", K_LANES // 2, WIDTH, 20),
+    ("tutorial", TUTORIAL_LANES, TUTORIAL_W, 7),
+    ("sop380", 1, WIDTH, 6),
+    ("lcs10x20", K_LANES, WIDTH, 20),
+    ("srflp60", 16, 64, 20),
+]
+# each path's K3 case: its own compile's model, instance, lanes and W
+K3_OF_PATH = dict(knapsack="kp2000", misp="misp200", max2sat="max2sat16", mcp="mcp16",
+                  tsptw="tsptw60", tsptw_search="tsptw60", sop="sop_small",
+                  srflp="srflp_small", lcs="lcs_small", psp="psp_small", alp="alp_small",
+                  device_loop="misp60", native="native_kp", cli="cli_kp",
+                  wide="max2sat135_w256", mesh="mesh_misp60", tutorial="tutorial")
+
+
+def k3_bundle(tt, label, models, tut):
+    """(bundle, dominance or None) of K3's case `label`, built as the
+    phase that compiles it builds them (`models`: `small_models`; `tut`:
+    the loaded tutorial)."""
+    from ddo_tpu_torch.models import knapsack as kp, lcs as lc, max2sat as ms, mcp as mc
+    from ddo_tpu_torch.models import sop as so, srflp as sr, tsptw as ts
+
+    knap = lambda pb: (tt.ModelBundle(pb, kp.KPRelax(pb), kp.KPRanking()), kp.KPDominance())
+    if label == "kp":
+        return knap(kp.generate_uncorrelated(100, 1000, 50, 100, seed=SEED))
+    if label == "kp2000":
+        return knap(kp.generate_uncorrelated(N_ITEMS, 1000, 1, 100, SEED))
+    if label in ("native_kp", "cli_kp"):
+        args = NATIVE_KP if label == "native_kp" else CLI_KP
+        return knap(kp.generate_uncorrelated(*args[:4], seed=args[4]))
+    if label in ("tsptw", "tsptw60"):
+        pb = (ts.generate_random(TSPTW_SMALL_N, SEED, window=40.0) if label == "tsptw"
+              else ts.generate_random(TSPTW_N, SEED, window=TSPTW_WINDOW))
+        return tt.ModelBundle(pb, ts.TsptwRelax(pb), ts.TsptwRanking()), ts.TsptwDominance()
+    if label == "misp200":
+        return misp_bundle(tt, MISP_N, MISP_P, SEED)[0], None
+    if label in ("misp60", "mesh_misp60"):
+        return misp_bundle(tt, DL_N, DL_P, SEED)[0], None
+    if label in ("max2sat16", "max2sat135_w256"):
+        pb, _ = (ms.generate_random(SMALL_N, 60, SEED) if label == "max2sat16"
+                 else ms.generate_random(WIDE_N, 3 * WIDE_N, SEED))
+        return tt.ModelBundle(pb, ms.Max2SatRelax(pb), ms.Max2SatRanking()), None
+    if label == "mcp16":
+        pb, _ = mc.generate_random(SMALL_N, 0.5, SEED)
+        return tt.ModelBundle(pb, mc.McpRelax(pb), mc.McpRanking()), None
+    if label.endswith("_small"):
+        return models[label[:-len("_small")]][:2]
+    if label == "tutorial":
+        return tutorial_bundle(tt, tut), None
+    if label == "sop380":
+        pb = so.generate_random(380, SEED)
+        return tt.ModelBundle(pb, so.SopRelax(pb), so.SopRanking()), None
+    if label == "lcs10x20":
+        pb = lc.generate_random(10, 20, 60, SEED)
+        return tt.ModelBundle(pb, lc.LcsRelax(pb), lc.LcsRanking()), lc.LcsDominance()
+    if label == "srflp60":
+        pb = sr.generate_random(60, SEED)
+        return tt.ModelBundle(pb, sr.SrflpRelax(pb), sr.SrflpRanking()), None
+    raise ValueError(f"no K3 case {label}")
+
+
+def phase_k3(torch, dev, models, tut):
+    """Phase 2b: K3's three parts against their plain versions at every
+    case of `K3_CASES`, on one layer's arguments recorded from an eager
+    relaxed compile of the case's own model and instance on the card, K
+    root lanes at W.  Returns {(kernel, case): row}."""
+    import ddo_tpu_torch as tt
+
+    from ddo_tpu_torch.engine import layer_tail as lt, mdd
+
+    class Recorded(Exception):
+        pass
+
+    def eager(spec, inputs, start):
+        layers = mdd._Layers(spec, inputs)
+        layers.begin(start)
+        return layers
+
+    def clone(x):
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            vals = [clone(v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        return x.clone() if torch.is_tensor(x) else x
+
+    rows = {}
+    for label, K, W, at in K3_CASES:
+        bundle, dom = k3_bundle(tt, label, models, tut)
+        at = min(at, bundle.problem.nb_variables // 2)
+        calls, seen = {}, [0]
+        parts = {p: getattr(lt, p) for p in lt.PARTS}
+
+        def record(p):
+            def run(*args):
+                if seen[0] == at:
+                    calls[p] = clone(args)
+                out = parts[p](*args)
+                if p == "dominance":
+                    seen[0] += 1
+                    if p in calls:
+                        raise Recorded()
+                return out
+            return run
+
+        saved = mdd._layers, {p: getattr(lt, p) for p in lt.PARTS}
+        mdd._layers = eager
+        for p in lt.PARTS:
+            setattr(lt, p, record(p))
+        try:
+            c = tt.DDCompiler(bundle, W, dominance=dom, device=dev)
+            c.compile_batch(tt.CompilationType.RELAXED, [tt.root_subproblem(bundle.problem)] * K,
+                            tt.NEG_INF, [W] * K)
+            raise AssertionError(f"K3 {label}: the compile ended before layer {at}")
+        except Recorded:
+            pass
+        finally:
+            mdd._layers = saved[0]
+            for p in lt.PARTS:
+                setattr(lt, p, saved[1][p])
+        torch.cuda.synchronize()
+        # each part on copies of its buffers: the kernel's and the plain
+        # version's outputs and buffers bit-equal
+        out = {}
+        for p in lt.PARTS:
+            args = calls[p]
+            kern, plain = getattr(lt, p + "_cuda"), getattr(lt, p + "_plain")
+            a1, a2 = clone(args), clone(args)
+            got, ref = kern(*a1), plain(*a2)
+            torch.cuda.synchronize()
+            if not trees_equal(torch, (got, a1), (ref, a2)):
+                raise AssertionError(f"K3 {p} at {label} disagrees with its plain version")
+            ms = [time_ms(torch, lambda: kern(*a1), 200) for _ in range(2)]
+            plain_ms = time_ms(torch, lambda: plain(*a2), 20)
+            b_ms, _ = bound(k3_bytes(p, args), 0)
+            out[p] = {"ms": sum(ms) / 2, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bytes": k3_bytes(p, args)}
+        Kk = calls["edges"][1]["kv"].shape[2]
+        del calls, a1, a2  # the recorded planes: up to ~1 GB a copy
+        total = {k: sum(v[k] for v in out.values()) for k in ("ms", "plain_ms", "bound_ms")}
+        row = {"phase": "kernel", "kernel": "layer_tail", "case": label,
+               "model": type(bundle.problem).__name__, "shape": [K, W * bundle.problem.domain_size],
+               "W": W, "D": bundle.problem.domain_size, "Kk": Kk, "layer": at,
+               "dominance": dom is not None, "max_abs_err": 0, "parts": out, **total,
+               "bound_by": "bytes", "share_of_bound": total["bound_ms"] / total["ms"]}
+        rows[("layer_tail", label)] = row
+        log(json.dumps(row))
+    return rows
+
+
+def trees_equal(torch, a, b):
+    """Every tensor leaf of two trees (dicts, tuples) equal in dtype, shape
+    and value."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(trees_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(trees_equal(torch, x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return a == b
 
 
 # K2's cases: (label, lanes, layers, W, D, timed calls).  The main paths'
@@ -1590,7 +1819,7 @@ def phase_device_loop(torch, dev, reset, read, n=DL_N, shapes=DL_SHAPES,
     pb = bundle.problem
     weight = [int(w) for w in pb.weight]
     opt = exact_mis(n, edges, weight)
-    mine = {"lane_sort": 0, "fused_backward": 0}
+    mine = {"lane_sort": 0, "fused_backward": 0, "layer_tail": 0}
     routes = {}
 
     def solver(kind, device, bundle, **kw):
@@ -1930,7 +2159,7 @@ def main(argv):
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    from ddo_tpu_torch.engine import backward as bwd, mdd
+    from ddo_tpu_torch.engine import backward as bwd, layer_tail as lt, mdd
     from ddo_tpu_torch.ops import sort as srt
     from ddo_tpu_torch.utils import cuda_build, trace
 
@@ -1942,11 +2171,12 @@ def main(argv):
     log(json.dumps({"phase": "device", "torch": torch.__version__,
                     "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)}))
     t0 = time.perf_counter()
-    cuda_build.build("lane_sort", "backward")
+    cuda_build.build("lane_sort", "backward", "layer_tail")
     srt._lib()
     bwd._lib()
+    lt._lib()
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}))
-    for name in ("lane_sort", "backward"):
+    for name in ("lane_sort", "backward", "layer_tail"):
         log(json.dumps({"phase": "ptxas", "source": f"ddo_tpu_torch/csrc/{name}.cu",
                         "kernels": ptxas_summary(cuda_build.ptxas_report(name))}))
     # K2's planner keeps a lane's cluster count within what the card holds
@@ -1986,6 +2216,7 @@ def main(argv):
                                  L=TUTORIAL_LANES))
     parent = tree_kernels(opts.parent) if opts.parent else None
     rows = phase_kernels(torch, dev, extra, parent)
+    rows.update(phase_k3(torch, dev, models, tut))
 
     # ---- 3-19. each path with its own launch counts: zeroed just before
     # it, read just after, and both kernels must have launched in it
@@ -1997,24 +2228,31 @@ def main(argv):
         bwd.KERNEL_LAUNCHES = 0
         bwd.ROUTE_LAUNCHES.update({r: 0 for r in bwd.ROUTE_LAUNCHES})
         bwd.CLUSTER_LAUNCHES.update({c: 0 for c in bwd.CLUSTER_LAUNCHES})
+        lt.KERNEL_LAUNCHES = 0
+        lt.PART_LAUNCHES.update({p: 0 for p in lt.PART_LAUNCHES})
 
     def read():
-        return ({"lane_sort": srt.KERNEL_LAUNCHES, "fused_backward": bwd.KERNEL_LAUNCHES},
+        return ({"lane_sort": srt.KERNEL_LAUNCHES, "fused_backward": bwd.KERNEL_LAUNCHES,
+                 "layer_tail": lt.KERNEL_LAUNCHES},
                 {"lane_sort": dict(srt.ROUTE_LAUNCHES),
                  "fused_backward": dict(bwd.ROUTE_LAUNCHES),
+                 "layer_tail": dict(lt.PART_LAUNCHES),
                  "stream_clusters": dict(bwd.CLUSTER_LAUNCHES)})
 
     graph_use = {}
 
     def graph_counts():
         return {"layers": trace.layers(), "graph_layers": trace.graph_layers(),
-                "captures": mdd.GRAPH_CAPTURES, "replays": mdd.GRAPH_REPLAYS}
+                "k3_layers": trace.k3_layers(), "captures": mdd.GRAPH_CAPTURES,
+                "replays": mdd.GRAPH_REPLAYS}
 
     def counted(path, drive):
         """Drive one path between a reset and a read of the counts; a
         drive that returns (launches, routes) counts its own runs only.
         Beside them: the path's layer-loop iterations, those replayed from
-        CUDA graphs, and the graphs captured and replayed (three a layer)."""
+        CUDA graphs, those whose tail ran through K3 (its last part's
+        runs; a drive with its own counts resets them), and the graphs
+        captured and replayed (three a layer)."""
         reset()
         before = graph_counts()
         t0 = time.perf_counter()
@@ -2055,11 +2293,15 @@ def main(argv):
     counted("wide", lambda: phase_wide(torch, dev))
     counted("mesh", lambda: phase_mesh(torch, dev, (tt.make_mesh(), tt.make_mesh([dev, dev]))))
     counted("tutorial", lambda: phase_tutorial(torch, dev, tut))
-    # the main paths replay their layers from CUDA graphs; mcp's and sop's
-    # layer bodies wait on the host, so they run eagerly
+    # the main paths replay their layers from CUDA graphs, each replayed
+    # layer's third graph running K3 (counted from what its capture
+    # recorded); mcp's and sop's layer bodies wait on the host, so they run
+    # eagerly
     for path in ("knapsack", "tsptw"):
-        if not graph_use[path]["graph_layers"]:
-            raise AssertionError(f"the {path} path replayed no layer: {graph_use[path]}")
+        use = graph_use[path]
+        if not use["graph_layers"] or use["k3_layers"] < use["graph_layers"]:
+            raise AssertionError(f"the {path} path replayed no layer, or some without K3: "
+                                 f"{use}")
     for path in ("mcp", "sop"):
         if graph_use[path]["graph_layers"]:
             raise AssertionError(f"the {path} path replayed layers: {graph_use[path]}")
@@ -2097,10 +2339,12 @@ def main(argv):
              "ddo_tpu/ops/sort_pallas.py:285", sort_case_),
             ("fused_backward", "ddo_tpu_torch/csrc/backward.cu",
              "ddo_tpu/engine/backward.py:346", backward_case_),
+            ("layer_tail", "ddo_tpu_torch/csrc/layer_tail.cu",
+             "none: plain ops of ddo_tpu/engine/mdd.py:637-895", K3_OF_PATH[path]),
         ]:
             main = rows[(name, main_case)]
             kernels.append({"name": name, "route": "cuda", "source": src, "path": path,
-                            "case": main_case, "kernel_route": main["route"],
+                            "case": main_case, "kernel_route": main.get("route", "parts"),
                             "replaces": replaces, "launches": launches[path][name],
                             "max_abs_err": max(v["max_abs_err"] for k, v in rows.items()
                                                if k[0] == name),
@@ -2108,7 +2352,8 @@ def main(argv):
                             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                             "share_of_bound": main["share_of_bound"],
                             # no single PyTorch call sorts lanes lexicographically
-                            # on several keys with payloads, or runs the sweep
+                            # on several keys with payloads, runs the sweep or the
+                            # layer's tail
                             "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,9 @@ One call compiles K diagrams at once, one per root subproblem (a "lane"):
     multi-key sort (kernel K1 on the GPU) + run heads (replaces the
     FxHashMap, clean.rs:143,738);
   * restriction/relaxation = a second per-lane sort by (value, ranking)
-    with a per-lane effective width (clean.rs:802-876);
+    with a per-lane effective width (clean.rs:802-876); what follows it
+    (the edge remap, the merged node, the next layer and its within-layer
+    dominance) is kernel K3 on the GPU (engine/layer_tail.py);
   * edges are stored outbound, flat [K, n, W*D] (child slot, cost, valid),
     and the local bounds (clean.rs:448-475) and thresholds
     (clean.rs:478-532) come from one fused backward sweep (kernel K2 on
@@ -57,14 +59,13 @@ import torch
 from ddo_tpu_torch.core.problem import ModelBundle, Problem
 from ddo_tpu_torch.core.types import CompilationType, CutsetType, SubProblem, host_batch
 from ddo_tpu_torch.engine import backward as bwd
-from ddo_tpu_torch.engine import extract
+from ddo_tpu_torch.engine import extract, layer_tail
 from ddo_tpu_torch.ops import segments as seg
 from ddo_tpu_torch.ops import sort as sort_ops
 from ddo_tpu_torch.utils import trace
-from ddo_tpu_torch.utils.num import INF, NEG_INF, argmax_first, sat_add, sat_sub
+from ddo_tpu_torch.utils.num import INF, NEG_INF, argmax_first, sat_add
 
 I32 = torch.int32
-_M27 = (1 << 27) - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,10 +301,7 @@ def _no_lap(name=None):
     pass
 
 
-def _put(plane, i1, value):
-    """plane[:, i] = value for a [K, m, ...] plane, `i1` the int64 [1]
-    index on its device (no host read of the index)."""
-    plane.index_copy_(1, i1, value.to(plane.dtype).unsqueeze(1))
+_put = layer_tail.put
 
 
 class _Layers:
@@ -344,7 +342,6 @@ class _Layers:
         empty = lambda shape, dtype=I32: torch.empty(shape, dtype=dtype, device=device)
         self.idxs = torch.arange(C, dtype=I32, device=device)
         self.neg_idxs = (-self.idxs).expand(K, C)
-        self.q = torch.arange(W, dtype=I32, device=device)
         self.slot0 = torch.arange(D, device=device) == 0
         self.i = empty((), torch.long)
         self.i1 = self.i.view(1)
@@ -461,7 +458,9 @@ class _Layers:
                 s1 = self.sorted[0].unbind(0)
                 g2, (ops2, nk2, c) = self._graph(lambda: self._seg2(is_last, s1, c, _no_lap))
                 s2 = self.sorted[1].unbind(0)
+                k3 = dict(layer_tail.CAPTURED)
                 g3, _ = self._graph(lambda: self._seg3(is_last, s2, c, _no_lap))
+                k3 = {p: layer_tail.CAPTURED[p] - k3[p] for p in k3}
         except trace.CaptureRefused:
             self.refused = True
             _GRAPHS[self.key] = _EAGER
@@ -469,11 +468,12 @@ class _Layers:
         finally:
             stream.wait_stream(side)
         GRAPH_CAPTURES += 3
-        # `c` holds every tensor the graphs pass on, kept for their lifetime
-        self.graphs[is_last] = (g1, ops1, nk1, g2, ops2, nk2, g3, c)
+        # `k3` the K3 launches g3 holds; `c` every tensor the graphs pass
+        # on, kept for their lifetime
+        self.graphs[is_last] = (g1, ops1, nk1, g2, ops2, nk2, g3, k3, c)
         return self.graphs[is_last]
 
-    def _replay(self, g1, ops1, nk1, g2, ops2, nk2, g3, c):
+    def _replay(self, g1, ops1, nk1, g2, ops2, nk2, g3, k3, c):
         global GRAPH_REPLAYS
         g1.replay()
         _sort(ops1, nk1, self.sorted[0])
@@ -482,6 +482,7 @@ class _Layers:
         g3.replay()
         GRAPH_REPLAYS += 3
         trace.count_graph_layers(1)
+        layer_tail.count_replayed(k3)
 
     # ----------------------------------------------------- the body, in three
     def _full(self, shape, value, dtype=I32):
@@ -685,52 +686,23 @@ class _Layers:
     def _seg3(self, is_last, s2, c, lap):
         """The kept, merged and pruned nodes from sort-2, the edge remap, the
         next layer and its within-layer dominance: writes layer i into the
-        planes and edges, the next layer into the carry, and advances i."""
-        spec, inp, i, i1 = self.spec, self.inp, self.i, self.i1
-        problem, rlx, comp = spec.bundle.problem, spec.bundle.relaxation, spec.comp_type
-        dom, rdata = spec.dominance, inp["datas"][1]
-        K, W, D, C, n, q, idxs = self.K, self.W, self.D, self.C, self.n, self.q, self.idxs
-        full, false, P, E = self._full, self._false, self.P, self.E
-        need_relax, need_restrict, cap = c["need_relax"], c["need_restrict"], c["cap"]
-        surv, head, perm, kv, U = c["surv"], c["head"], c["perm"], c["kv"], c["U"]
-        f_state, f_valid, f_cost, f_dval = c["f_state"], c["f_valid"], c["f_cost"], c["f_dval"]
-        c_state, c_val = c["c_state"], c["c_val"]
-        squashed = need_relax | need_restrict
-
-        so_val = -s2[1]
-        order2 = -s2[-1]
-        so_valid = s2[0] == 0
-        rank_of = seg.scatter(order2, idxs.expand(K, C))
-
-        limit = torch.where(need_relax, cap - 1, torch.where(need_restrict, cap, C))
-        kept = surv & (rank_of < limit[:, None])
-        merge_mask = surv & ~kept & need_relax[:, None]
-
-        # --- edge remap: every candidate takes its run head's code
-        slot_code = (rank_of + (kept.to(I32) << 27) + (merge_mask.to(I32) << 28)
-                     + (c["pruned"].to(I32) << 29) + (c["pci"].to(I32) << 30))
-        code_s, ptheta_s = seg.seg_broadcast_at_head(head, (slot_code, c["ptheta"]))
-        e_code = seg.scatter(perm, code_s)
-        cand_ptheta = seg.scatter(perm, ptheta_s)
-        f_mmask = seg.scatter(perm, merge_mask)
+        planes and edges, the next layer into the carry, and advances i.
+        Kernel K3's three parts (`layer_tail`) with the model's hooks
+        between them."""
+        spec, inp, i, i1, P = self.spec, self.inp, self.i, self.i1, self.P
+        problem, rlx = spec.bundle.problem, spec.bundle.relaxation
+        K, W, D, C = self.K, self.W, self.D, self.C
+        f_state, c_state = c["f_state"], c["c_state"]
+        t = {k: c[k] if c[k] is None else c[k].contiguous() for k in _TAIL_INPUTS}
+        t.update(neg_order=s2[-1], so_key=s2[0], so_negval=s2[1])
+        a = layer_tail.remap(t)
 
         # merged node (only meaningful under need_relax)
-        merged_state = rlx.merge(rdata, f_state, f_mmask)
-        merged_key = problem.pack(merged_state).to(I32)  # [K, Kk]
-        eq_kept = kept & (kv == merged_key[:, None, :]).all(dim=2)
-        recycled = eq_kept.any(dim=1) & need_relax
-        recycled_slot = argmax_first(eq_kept.to(I32))[:, None]
-        merged_pos = torch.where(recycled, rank_of.gather(1, recycled_slot)[:, 0], limit)
-
-        # recycle/save: when the merged state equals a kept node, the saved
-        # slot (rank == limit) stays a kept node (clean.rs:830,868-875)
-        e_saved = recycled[:, None] & ((e_code & _M27) == limit[:, None]) \
-            & ((e_code & (1 << 28)) != 0)
-        e_kept = f_valid & (((e_code & (1 << 27)) != 0) | e_saved)
-        e_merge = f_valid & ((e_code & (1 << 28)) != 0) & need_relax[:, None] & ~e_saved
-        e_pruned = f_valid & ((e_code & (1 << 29)) != 0)
-        e_pci = f_valid & ((e_code & (1 << 30)) != 0)
-        if comp == CompilationType.RELAXED:
+        rdata = inp["datas"][1]
+        merged_state = rlx.merge(rdata, f_state, a.f_mmask)
+        merged_key = problem.pack(merged_state).to(I32).contiguous()  # [K, Kk]
+        rcost = None
+        if spec.comp_type == CompilationType.RELAXED:
             # src is the parent's state, dst the original child state
             # (Relaxation::relax, abstraction/dp.rs:93-100)
             rcost = rlx.relax_cost(
@@ -738,133 +710,39 @@ class _Layers:
                 _flat(f_state, 2),
                 _flat(tmap(lambda m: m[:, None].expand((K, C) + tuple(m.shape[1:])),
                            merged_state), 2),
-                f_dval.reshape(-1), f_cost.reshape(-1), c["var"].repeat_interleave(C),
-            ).to(I32).reshape(K, C)
-            e_cost = torch.where(e_merge, rcost, f_cost)
-        else:
-            e_cost = f_cost
-        e_child = torch.where(e_kept, e_code & _M27,
-                              torch.where(e_merge, merged_pos[:, None], -1))
-        e_valid = f_valid & (e_child >= 0)
-
-        # theta of filter-pruned children propagates to parents
-        # (clean.rs:502,522-528): per-parent min of (theta - cost)
-        if self.filtering:
-            ep = torch.where(e_pruned, sat_sub(cand_ptheta, f_cost), INF)
-            _put(P["eptheta"], i1, ep.view(K, W, D).amin(dim=2))
-
-        # merged node aggregates (append_edge_to!, clean.rs:199-219)
-        m_edge_val = torch.where(
-            e_merge, sat_add(c_val.repeat_interleave(D, dim=1), e_cost), NEG_INF)
-        m_val = m_edge_val.amax(dim=1)
-        m_is_best = e_merge & (m_edge_val == m_val[:, None])
-        m_best_flat = torch.where(m_is_best, idxs, -1).amax(dim=1)
-        has_medge = m_best_flat >= 0
-        m_best = m_best_flat.clamp(0, C - 1).long()[:, None]
-        m_bp = torch.where(has_medge, m_best[:, 0].to(I32) // D, -1)
-        m_bd = torch.where(has_medge, f_dval.gather(1, m_best)[:, 0], 0)
+                c["f_dval"].reshape(-1), c["f_cost"].reshape(-1), c["var"].repeat_interleave(C),
+            ).to(I32).reshape(K, C).contiguous()
 
         # --- materialize the next layer: the first W ranking-sorted slots,
         # through the composition of the two sort permutations
         lap("ddo.layer.materialize")
-        width_used = torch.where(squashed, torch.where(need_relax, limit + 1, cap),
-                                 torch.clamp(U, max=W))
-        self.overflow |= (U > W) & ~squashed
-        order2_W = order2[:, :W].long()
-        fidx_W = perm.gather(1, order2_W)
-        q_valid = (q < width_used[:, None]) & so_valid[:, :W]
-        nl_val = so_val[:, :W]
-        nl_exact = c["slot_exact"].gather(1, order2_W)
-        nl_bp = torch.where(so_valid[:, :W], fidx_W // D, -1)
-        nl_bd = f_dval.gather(1, fidx_W.long())
-        # a node whose best in-edge is a long (skip) arc
-        nl_bs = c["skip_s"].gather(1, order2_W) if self.long_arcs else false((K, W))
-        nl_state = tmap(lambda x: seg.take_rows(x, fidx_W), f_state)
-
-        # overrides for the merged node
-        is_mpos = need_relax[:, None] & (q == merged_pos[:, None])
-        rec_val = c["val_s"].gather(1, recycled_slot)[:, 0]
-        mv_new = torch.where(recycled[:, None], torch.maximum(nl_val, m_val[:, None]),
-                             m_val[:, None])
-        take_medge = has_medge & torch.where(recycled, m_val >= rec_val, True)
-        nl_val = torch.where(is_mpos, mv_new, nl_val)
-        use_m = is_mpos & take_medge[:, None]
-        nl_bp = torch.where(use_m, m_bp[:, None], nl_bp)
-        nl_bd = torch.where(use_m, m_bd[:, None], nl_bd)
-        if self.long_arcs:
-            m_bs = has_medge & c["f_skip"].gather(1, m_best)[:, 0]
-            nl_bs = torch.where(use_m, m_bs[:, None], nl_bs)
-        # the merged node is never exact, recycled or not (node_flags.rs:88-90)
-        nl_exact = nl_exact & ~is_mpos
-        nl_relaxed = is_mpos
-        q_valid = q_valid | is_mpos
-        fresh = is_mpos & ~recycled[:, None]
-        nl_state = tmap(lambda m, t: torch.where(_bcast(fresh, t), m[:, None], t),
+        layer = {name: c["rub" if name == "rub" else "c_" + name]
+                 for name in layer_tail.NODE_PLANES}
+        planes = P if self.filtering else dict(P, eptheta=None)
+        nxt = layer_tail.edges(i, t, a, merged_key, rcost, layer, planes, self.E, self.lel,
+                               self.overflow)
+        tmap(lambda p, v: _put(p, i1, v), P["state"], c_state)
+        nl_state = tmap(lambda x: seg.take_rows(x, nxt.fidx), f_state)
+        nl_state = tmap(lambda m, x: torch.where(_bcast(nxt.fresh, x), m[:, None], x),
                         merged_state, nl_state)
-        nl_exact = nl_exact & q_valid
-        nl_relaxed = nl_relaxed & q_valid
+        tmap(lambda dst, src: dst.copy_(src), self.cur["state"], nl_state)
 
         # ---- within-layer dominance (clean.rs:689-708, the layer-local
-        # part): dominated exact rows stay in the buffer masked-invalid,
-        # carrying their threshold as theta
+        # part), the carried layer, and i advanced
         lap("ddo.layer.dominance")
-        wl_pruned = false((K, W))
-        wl_ptheta = full((K, W), INF)
+        dom = spec.dominance
+        w_dkey = w_dcoord = None
         if self.use_dom and not is_last:
-            nv = torch.where(q_valid, nl_val, NEG_INF)
-            w_dkey = _cols(dom.key_cols, nl_state, (K, W))
-            w_dcoord = _cols(dom.coord_cols, nl_state, (K, W))
-            cand = q_valid & nl_exact
-            km_ij = (w_dkey[:, :, None] == w_dkey[:, None]).all(dim=3)
-            ge_ij = (w_dcoord[:, :, None] >= w_dcoord[:, None]).all(dim=3)
-            eq_ij = (w_dcoord[:, :, None] == w_dcoord[:, None]).all(dim=3)
-            both = cand[:, :, None] & cand[:, None, :]
-            vi, vj = nv[:, :, None], nv[:, None, :]
-            if dom.use_value:  # [k, i, j]: i strictly dominates j
-                dom_ij = both & km_ij & ge_ij & (vi >= vj) & ~(eq_ij & (vi == vj))
-            else:
-                dom_ij = both & km_ij & ge_ij & ~eq_ij
-            wl_pruned = dom_ij.any(dim=1)
-            if dom.use_value:
-                # thresholds from MAXIMAL dominators only
-                maximal = cand & ~wl_pruned
-                contrib = torch.where(eq_ij, vi - 1, vi)
-                wl_thr = torch.where(dom_ij & maximal[:, :, None], contrib,
-                                     INF).amin(dim=1)
-                wl_ptheta = torch.where(wl_pruned, wl_thr, INF)
+            w_dkey = _cols(dom.key_cols, nl_state, (K, W)).contiguous()
+            w_dcoord = _cols(dom.coord_cols, nl_state, (K, W)).contiguous()
+        layer_tail.dominance(i, nxt, w_dkey, w_dcoord, dom is not None and dom.use_value,
+                             c["c_ebp"], self.cur)
 
-        exact_for_hic = nl_exact  # wl-pruned rows are not "inexact children"
-        q_valid = q_valid & ~wl_pruned
-        nl_val = torch.where(q_valid, nl_val, NEG_INF)
-        nl_exact = nl_exact & q_valid
-        nl_relaxed = nl_relaxed & q_valid
 
-        # exact-best-path flag, incrementally (clean.rs:643-655)
-        lap("ddo.layer.materialize")
-        par_ebp = c["c_ebp"].gather(1, nl_bp.clamp(0, W - 1).long()) & (nl_bp >= 0)
-        nl_ebp = (nl_exact | (~nl_relaxed & par_ebp)) & q_valid
-
-        # LEL (clean.rs:796-800): the layer before the first squashed one
-        self.lel.copy_(torch.where(squashed & (self.lel == n + 1), i.to(I32), self.lel))
-
-        # frontier-cutset ingredient (clean.rs:586-606): an inexact child
-        ch_inexact = e_valid & ~exact_for_hic.gather(1, e_child.clamp(0, W - 1).long())
-        _put(P["hic"], i1, (ch_inexact | e_pci).view(K, W, D).any(dim=2))
-
-        tmap(lambda p, v: _put(p, i1, v), P["state"], c_state)
-        for name, val in (("val", c_val), ("mask", c["c_mask"]), ("exact", c["c_exact"]),
-                          ("relaxed", c["c_relaxed"]), ("rub", c["rub"]), ("bp", c["c_bp"]),
-                          ("bd", c["c_bd"]), ("bs", c["c_bs"]), ("wlp", c["c_wlp"]),
-                          ("wlth", c["c_wlth"])):
-            _put(P[name], i1, val)
-        for name, val in (("child", e_child), ("cost", e_cost), ("valid", e_valid)):
-            _put(E[name], i1, val)
-        nxt = dict(state=nl_state, val=nl_val, mask=q_valid, exact=nl_exact,
-                   relaxed=nl_relaxed, bp=nl_bp, bd=nl_bd, bs=nl_bs & q_valid,
-                   ebp=nl_ebp, wlp=wl_pruned, wlth=wl_ptheta)
-        for name, val in nxt.items():
-            tmap(lambda dst, src: dst.copy_(src), self.cur[name], val)
-        i.add_(1)
+#: what `_seg3` hands K3 of the earlier segments' tensors
+_TAIL_INPUTS = ("surv", "head", "perm", "pruned", "pci", "ptheta", "cap", "need_relax",
+                "need_restrict", "U", "kv", "val_s", "slot_exact", "skip_s", "f_valid",
+                "f_cost", "f_dval", "f_skip")
 
 
 def finalize(spec: DDSpec, datas, var_of, term, P, E, lel, expanded, overflow,

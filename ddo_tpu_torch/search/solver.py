@@ -70,6 +70,8 @@ class SolverStats:
 
     `layers` counts layer-loop iterations (n - start per compile),
     `graph_layers` those of them replayed from CUDA graphs (engine/mdd.py),
+    `k3_layers` those whose tail ran through kernel K3 on a card
+    (engine/layer_tail.py), eagerly or replayed,
     `host_syncs` the waits on the device (`trace.wait`), `supersteps` the
     K-lane compiles of popped subproblems.  `start_ns` and `end_ns` bracket
     the solve on `time.time_ns()`, the clock of the profiler's events."""
@@ -87,6 +89,7 @@ class SolverStats:
     absorb_s: float = 0.0
     layers: int = 0
     graph_layers: int = 0
+    k3_layers: int = 0
     host_syncs: int = 0
     start_ns: int = 0
     end_ns: int = 0
@@ -99,7 +102,8 @@ class SolverStats:
         return (
             f"supersteps={self.supersteps} explored={explored} "
             f"expanded={expanded} layers={self.layers} "
-            f"graph_layers={self.graph_layers} pop={self.pop_s:.3f}s "
+            f"graph_layers={self.graph_layers} k3_layers={self.k3_layers} "
+            f"pop={self.pop_s:.3f}s "
             f"snapshot={self.snapshot_s:.3f}s compile={self.compile_s:.3f}s "
             f"extract={self.extract_s:.3f}s absorb={self.absorb_s:.3f}s "
             f"total={self.total_s:.3f}s host_syncs={self.host_syncs} "

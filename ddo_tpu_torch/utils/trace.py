@@ -21,8 +21,9 @@ waits of a card run.  A wait cannot be recorded into a CUDA graph: while
 the current stream captures, `wait` raises `CaptureRefused` instead, and
 the compile that captures runs that layer body eagerly (engine/mdd.py).
 `layers()` counts the layer-loop iterations of every compile,
-`graph_layers()` those replayed from CUDA graphs.  A solve's share of
-each is the difference across it.
+`graph_layers()` those replayed from CUDA graphs, `k3_layers()` those
+whose tail ran through kernel K3 on a card (engine/layer_tail.py counts
+K3's runs).  A solve's share of each is the difference across it.
 
 Recent solves.  `SOLVES` keeps the `SolverStats` of the last 1,024
 finished solves of the process, newest last (`solve_in` finds one by its
@@ -65,6 +66,15 @@ def layers() -> int:
 def graph_layers() -> int:
     """Layer-loop iterations of this process replayed from CUDA graphs."""
     return _counts["graph_layers"]
+
+
+def k3_layers() -> int:
+    """Layer-loop iterations of this process whose tail ran through kernel
+    K3, eagerly or replayed: the runs of its last part, as
+    engine/layer_tail.py counts them."""
+    from ddo_tpu_torch.engine import layer_tail
+
+    return layer_tail.PART_LAUNCHES["dominance"]
 
 
 class CaptureRefused(Exception):
@@ -163,8 +173,8 @@ class Phases:
     `Phases(stats)` to `stop()` (its first is "pop", the set-up), so the
     five phases add up to `total_s`; while a profiler records, less the
     cost of entering and leaving their spans, which no phase holds.
-    `stop()` fills `total_s`, `end_ns`, `layers`, `graph_layers` and
-    `host_syncs` and keeps a copy of the stats in `SOLVES`."""
+    `stop()` fills `total_s`, `end_ns`, `layers`, `graph_layers`,
+    `k3_layers` and `host_syncs` and keeps a copy of the stats in `SOLVES`."""
 
     def __init__(self, stats):
         self.stats = stats
@@ -172,6 +182,7 @@ class Phases:
         self.span = None
         self.fields = ()
         self.syncs, self.layers, self.graph_layers = host_syncs(), layers(), graph_layers()
+        self.k3_layers = k3_layers()
         stats.start_ns = time.time_ns()
         stats.start = self.t = time.perf_counter()
 
@@ -203,5 +214,6 @@ class Phases:
         st.end_ns = time.time_ns()
         st.layers += layers() - self.layers
         st.graph_layers += graph_layers() - self.graph_layers
+        st.k3_layers += k3_layers() - self.k3_layers
         st.host_syncs += host_syncs() - self.syncs
         SOLVES.append(copy.copy(st))

@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 import ddo_tpu_torch as tt
 from ddbench import cell as cells
 from ddo_tpu_torch.core.problem import depth_row, depth_select
-from ddo_tpu_torch.engine import mdd
+from ddo_tpu_torch.engine import layer_tail, mdd
 from ddo_tpu_torch.models import alp, golomb, knapsack, lcs, max2sat, mcp, misp, psp, sop
 from ddo_tpu_torch.models import srflp, talentsched, tsptw
 from ddo_tpu_torch.search.solver import SolverStats
@@ -323,7 +323,8 @@ def _eager_layers(spec, inputs, start):
 def test_replayed_compiles_equal_the_cpu(name, K, tables, monkeypatch):
     """Two instances of equal shapes compiled back to back on the card
     (the first captures its graphs, the second replays every layer), each
-    read after both ran: every plane equals the CPU path's.  The models
+    read after both ran: every plane equals the CPU path's, and every
+    layer of both counts as run through kernel K3.  The models
     whose body waits run every layer eagerly.  talentsched's rough bound
     is a float32 sum that the card adds in another order than the CPU
     (chip_smoke.py phase 5), so its planes are held to the card's eager
@@ -333,6 +334,7 @@ def test_replayed_compiles_equal_the_cpu(name, K, tables, monkeypatch):
     tabs = {(seed, dev): _tables(*model(name, seed), W, dev) if tables else None
             for seed in (1, 2) for dev in ("cuda", "cpu")}
     mdd._GRAPHS.clear()
+    k3 = trace.k3_layers()
     first = _fused(*model(name, 1), W, K, tabs[1, "cuda"], "cuda")
     layers, graphs = trace.layers(), trace.graph_layers()
     second = _fused(*model(name, 2), W, K, tabs[2, "cuda"], "cuda")
@@ -341,6 +343,8 @@ def test_replayed_compiles_equal_the_cpu(name, K, tables, monkeypatch):
     n = model(name, 1)[0].problem.nb_variables
     assert ran == 2 * n
     assert replayed == (0 if name in WAITING else ran)
+    # every layer's tail, eager, captured or replayed, ran through K3
+    assert trace.k3_layers() - k3 == 2 * ran
     for seed, batches in ((1, first), (2, second)):
         if name == "talentsched":
             with monkeypatch.context() as m:
@@ -355,6 +359,9 @@ def test_replayed_compiles_equal_the_cpu(name, K, tables, monkeypatch):
         assert entries == [mdd._EAGER] * 2
     else:  # the middle layers' graphs apart from the last layer's
         assert all(set(e.graphs) == {False, True} for e in entries)
+        # each layer's third graph holds one launch of each of K3's parts
+        assert all(g[7] == {p: 1 for p in layer_tail.PARTS}
+                   for e in entries for g in e.graphs.values())
 
 
 @pytest.mark.cuda
