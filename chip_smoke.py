@@ -416,8 +416,8 @@ def tree_kernels(root):
     e.g. a parent commit unpacked with `git archive`, built from that
     checkout's own `csrc/` into its own `build/` (one nvcc per source,
     started together), beside this checkout's, so that phase 2 can time
-    both in turns.  A checkout whose K2 counts no launches by route is
-    refused."""
+    both in turns.  A checkout whose K2 has no `backward_plan`, which
+    names the route the parent takes, is refused."""
     import importlib.util
     import os
 
@@ -430,23 +430,14 @@ def tree_kernels(root):
     cb = load("parent_cuda_build", "ddo_tpu_torch/utils/cuda_build.py")
     srt = load("parent_sort", "ddo_tpu_torch/ops/sort.py")
     bwd = load("parent_backward", "ddo_tpu_torch/engine/backward.py")
-    if not hasattr(bwd, "ROUTE_LAUNCHES"):
+    if not hasattr(bwd, "backward_plan"):
         raise RuntimeError(
-            f"--parent {root}: its K2 wrapper (ddo_tpu_torch/engine/backward.py) counts "
-            "no launches by route (ROUTE_LAUNCHES), which phase 2 reads to name the "
-            "route the parent takes; only a tree that has them can be timed here")
+            f"--parent {root}: its K2 wrapper (ddo_tpu_torch/engine/backward.py) has no "
+            "backward_plan, which phase 2 reads to name the route the parent takes; only "
+            "a tree that has it can be timed here")
     srt.cuda_build = bwd.cuda_build = cb
     cb.build("lane_sort", "backward")
     return srt, bwd
-
-
-def parent_backward_route(parent_bwd, args):
-    """The route the parent's K2 takes on `args`, read from its launch
-    counts by route around one call."""
-    before = dict(parent_bwd.ROUTE_LAUNCHES)
-    parent_bwd.fused_backward_cuda(*args)
-    return next(r for r in parent_bwd.ROUTE_LAUNCHES
-                if parent_bwd.ROUTE_LAUNCHES[r] != before[r])
 
 
 def phase_kernels(torch, dev, extra_k1=(), parent=None):
@@ -472,7 +463,7 @@ def phase_kernels(torch, dev, extra_k1=(), parent=None):
         route = forced or srt.lane_sort_route(nk, C, L)
         # every route is stable, so each gives the plain version's
         # payload order under tied keys too
-        routes = [route] + [r for r in srt.ROUTE_LAUNCHES if r != route and srt._fits(r, nk, C)]
+        routes = [route] + [r for r in srt.ROUTES if r != route and srt._fits(r, nk, C)]
         err = 0
         for r_ in routes:
             got = srt.multi_sort_cuda(ops, nk, route=r_)
@@ -805,7 +796,7 @@ def backward_row(torch, gen, dev, bwd, label, K, n, W, D, reps, parent):
     calls = {name: (lambda kw=kw: bwd.fused_backward_cuda(*args, **kw))
              for name, kw in forced.items()}
     if parent is not None:
-        parent_route = parent_backward_route(parent[1], args)
+        parent_route = parent[1].backward_plan(K, W, D).route
         calls = {"parent": lambda: parent[1].fused_backward_cuda(*args), **calls}
     ms = {k: [] for k in calls}
     for k in list(calls) + list(calls)[::-1]:
@@ -1046,11 +1037,9 @@ def phase_solve(torch, dev, pb, opt, W=WIDTH, batch=K_LANES):
     """Phase 4: `maximize` proves the real-size instance's optimum at
     width W, cache and dominance on."""
     import ddo_tpu_torch as tt
-    from ddo_tpu_torch.engine import backward as bwd
     from ddo_tpu_torch.models import knapsack as kp
-    from ddo_tpu_torch.ops import sort as srt
 
-    before = srt.KERNEL_LAUNCHES, bwd.KERNEL_LAUNCHES
+    before = launch_counts()
     sol = tt.maximize(pb, kp.KPRelax(pb), kp.KPRanking(), use_cache=True, width=W,
                       batch=batch,
                       dominance=tt.SimpleDominanceChecker(kp.KPDominance(),
@@ -1059,11 +1048,12 @@ def phase_solve(torch, dev, pb, opt, W=WIDTH, batch=K_LANES):
     if sol.aborted or sol.gap != 0 or sol.objective != opt:
         raise AssertionError(f"maximize: {sol} vs DP optimum {opt}")
     # K2 runs once per pass: two per superstep
+    launches, _ = launches_since(before)
     log(json.dumps({"phase": "solve", "n": pb.nb_variables, "width": W,
                     "batch": batch, "optimum": opt, "objective": sol.objective,
                     "gap": sol.gap, "time_to_optimum_s": sol.duration,
-                    "lane_sort_launches": srt.KERNEL_LAUNCHES - before[0],
-                    "fused_backward_launches": bwd.KERNEL_LAUNCHES - before[1]}))
+                    "lane_sort_launches": launches["lane_sort"],
+                    "fused_backward_launches": launches["fused_backward"]}))
     return sol
 
 
@@ -1447,9 +1437,7 @@ def phase_tsptw_compile(torch, dev, rows, K=K_LANES, W=WIDTH, n=TSPTW_N):
     value, a restricted tour replays within every window at its value, and
     both sorts of every layer take K1's "merge" route."""
     import ddo_tpu_torch as tt
-    from ddo_tpu_torch.engine import backward as bwd
     from ddo_tpu_torch.models import tsptw as ts
-    from ddo_tpu_torch.ops import sort as srt
 
     pb = ts.generate_random(n, SEED, window=TSPTW_WINDOW)
     bundle = tt.ModelBundle(pb, ts.TsptwRelax(pb), ts.TsptwRanking())
@@ -1466,8 +1454,7 @@ def phase_tsptw_compile(torch, dev, rows, K=K_LANES, W=WIDTH, n=TSPTW_N):
     for label, comp in [("restricted", tt.CompilationType.RESTRICTED),
                         ("relaxed", tt.CompilationType.RELAXED)]:
         relaxed = label == "relaxed"
-        before = (srt.KERNEL_LAUNCHES, dict(srt.ROUTE_LAUNCHES), bwd.KERNEL_LAUNCHES,
-                  dict(bwd.ROUTE_LAUNCHES))
+        before = launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1475,10 +1462,10 @@ def phase_tsptw_compile(torch, dev, rows, K=K_LANES, W=WIDTH, n=TSPTW_N):
         expanded = batch.total_expanded  # waits for the device
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        k1 = {r: srt.ROUTE_LAUNCHES[r] - before[1][r] for r in srt.ROUTE_LAUNCHES}
-        if k1["merge"] != 2 * n or srt.KERNEL_LAUNCHES - before[0] != 2 * n:
+        launches, by = launches_since(before)
+        k1, k2 = by["lane_sort"], by["fused_backward"]
+        if k1["merge"] != 2 * n or launches["lane_sort"] != 2 * n:
             raise AssertionError(f"{label}: K1 did not sort every layer on its merge route: {k1}")
-        k2 = {r: bwd.ROUTE_LAUNCHES[r] - before[3][r] for r in bwd.ROUTE_LAUNCHES}
         if k2 != {**{r: 0 for r in k2}, "stream": 1}:
             raise AssertionError(f"{label}: K2 did not sweep once on its stream route: {k2}")
         t0 = time.perf_counter()
@@ -1504,9 +1491,9 @@ def phase_tsptw_compile(torch, dev, rows, K=K_LANES, W=WIDTH, n=TSPTW_N):
             "window": TSPTW_WINDOW, "best_value": best[label][0], "expanded": expanded,
             "wall_s": wall, "ms_per_layer": 1e3 * wall / n,
             "expansions_per_s": expanded / wall, "peak_bytes": peak,
-            "lane_sort_launches": srt.KERNEL_LAUNCHES - before[0], "lane_sort_routes": k1,
+            "lane_sort_launches": launches["lane_sort"], "lane_sort_routes": k1,
             "lane_sort_ms_per_layer": k1_ms,
-            "fused_backward_launches": bwd.KERNEL_LAUNCHES - before[2],
+            "fused_backward_launches": launches["fused_backward"],
             "fused_backward_routes": k2,
             "fused_backward_ms": rows[("fused_backward", "tsptw")]["ms"],
             "fused_backward_route": rows[("fused_backward", "tsptw")]["route"],
@@ -1557,7 +1544,6 @@ def phase_tsptw_search(torch, dev, n=TSPTW_N, W=WIDTH, batch=K_LANES,
     best tour replays within every window at its value, and the bounds
     bracket it."""
     import ddo_tpu_torch as tt
-    from ddo_tpu_torch.engine import backward as bwd
     from ddo_tpu_torch.models import tsptw as ts
 
     pb = ts.generate_random(n, SEED, window=TSPTW_WINDOW)
@@ -1573,12 +1559,12 @@ def phase_tsptw_search(torch, dev, n=TSPTW_N, W=WIDTH, batch=K_LANES,
         return compile_batch(comp_type, subs, *a, **kw)
 
     solver.compiler.compile_batch = recorded
-    before = dict(bwd.CLUSTER_LAUNCHES), bwd.KERNEL_LAUNCHES
+    before = launch_counts()
     t0 = time.perf_counter()
     completion = solver.maximize()
     wall = time.perf_counter() - t0
-    clusters = {c: m - before[0][c] for c, m in bwd.CLUSTER_LAUNCHES.items()}
-    calls = bwd.KERNEL_LAUNCHES - before[1]
+    launches, by = launches_since(before)
+    clusters, calls = by["stream_clusters"], launches["fused_backward"]
     value, (vals, pset) = solver.best_value(), solver.best_solution()
     if value is None or -replay_tour(pb, vals, pset) != value:
         raise AssertionError("tsptw search: the best tour does not cost its value")
@@ -1975,7 +1961,6 @@ def phase_wide(torch, dev):
     import ddo_tpu_torch as tt
     from ddo_tpu_torch.engine.mdd import _check_sort_operands
     from ddo_tpu_torch.models import max2sat as ms, mcp as mc
-    from ddo_tpu_torch.ops import sort as srt
 
     def bundle(model, n):
         if model == "max2sat":
@@ -1990,9 +1975,9 @@ def phase_wide(torch, dev):
                 _check_sort_operands(bundle(model, n), None, W)
     for model, n, W, route in [("max2sat", WIDE_N, 32, "perm"), ("max2sat", WIDE_N, WIDTH, "merge"),
                                ("mcp", WIDE_N, 32, "perm"), ("max2sat", WIDE_N2, 32, "perm")]:
-        before = dict(srt.ROUTE_LAUNCHES)
+        before = launch_counts()
         row, _, _ = compile_parity(torch, dev, model, bundle(model, n), W)
-        taken = {r: srt.ROUTE_LAUNCHES[r] - before[r] for r in before}
+        taken = launches_since(before)[1]["lane_sort"]
         if row["sort1"]["route"] != route or not taken[route]:
             raise AssertionError(f"{model} n={n} W={W}: sort-1 is to take the {route} route: "
                                  f"{row}, {taken}")
@@ -2002,22 +1987,35 @@ def phase_wide(torch, dev):
 # ------------------------------------------- the mesh and the tutorial
 def solve_row(solver, wall, opt, before):
     """A finished solve's JSON fields, with K1's and K2's launches by route
-    since `before` (a `route_counts()`); raises unless it proved `opt`."""
+    since `before` (a `launch_counts()`); raises unless it proved `opt`."""
     if solver.abort_proof is not None or solver.best_value() != opt or solver.gap() != 0:
         raise AssertionError(f"{type(solver.compiler).__name__}: {solver.best_value()} "
                              f"(gap {solver.gap()}) vs optimum {opt}")
-    after = route_counts()
+    _, by = launches_since(before)
     return {"optimum": opt, "wall_s": wall, "lanes": solver.batch,
-            **solver_counts(solver),
-            "lane_sort_routes": {r: after[0][r] - before[0][r] for r in after[0]},
-            "fused_backward_routes": {r: after[1][r] - before[1][r] for r in after[1]}}
+            **solver_counts(solver), "lane_sort_routes": by["lane_sort"],
+            "fused_backward_routes": by["fused_backward"]}
 
 
-def route_counts():
-    from ddo_tpu_torch.engine import backward as bwd
+def launch_counts():
+    """The registry's launch counts (`trace.counted`) a path reports: K1's
+    and K2's by route, K3's by part, K2's "stream" route by cluster."""
+    from ddo_tpu_torch.engine import backward as bwd, layer_tail as lt
     from ddo_tpu_torch.ops import sort as srt
+    from ddo_tpu_torch.utils import trace
 
-    return dict(srt.ROUTE_LAUNCHES), dict(bwd.ROUTE_LAUNCHES)
+    return {"lane_sort": {r: trace.counted("lane_sort." + r) for r in srt.ROUTES},
+            "fused_backward": {r: trace.counted("fused_backward." + r) for r in bwd.ROUTES},
+            "layer_tail": {p: trace.counted("layer_tail." + p) for p in lt.PARTS},
+            "stream_clusters": {c: trace.counted(f"fused_backward.stream.{c}")
+                                for c in bwd.CLUSTERS_RESIDENT}}
+
+
+def launches_since(before):
+    """(launches of each kernel, and those by route, part or cluster)
+    since `before`, a `launch_counts()`."""
+    by = {k: {r: m - before[k][r] for r, m in v.items()} for k, v in launch_counts().items()}
+    return {k: sum(by[k].values()) for k in ("lane_sort", "fused_backward", "layer_tail")}, by
 
 
 def phase_mesh(torch, dev, meshes, n=N_ITEMS, W=WIDTH, batch=K_LANES):
@@ -2042,7 +2040,7 @@ def phase_mesh(torch, dev, meshes, n=N_ITEMS, W=WIDTH, batch=K_LANES):
         makers = [("sequential", None)] + [("mesh", m) for m in meshes]
         rows, walls = [], {}
         for label, mesh in makers + makers[::-1]:
-            before = route_counts()
+            before = launch_counts()
             solver = (tt.SequentialSolver(bundle, device=dev, **kw()) if mesh is None
                       else tt.MeshSolver(bundle, mesh=mesh, **kw()))
             t0 = time.perf_counter()
@@ -2130,7 +2128,7 @@ def phase_tutorial(torch, dev, tut):
 
     start, end, profit = tut.instance()
     opt = tut.brute_force(start.tolist(), end.tolist(), profit.tolist())
-    before = route_counts()
+    before = launch_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -2159,7 +2157,7 @@ def main(argv):
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    from ddo_tpu_torch.engine import backward as bwd, layer_tail as lt, mdd
+    from ddo_tpu_torch.engine import backward as bwd, layer_tail as lt
     from ddo_tpu_torch.ops import sort as srt
     from ddo_tpu_torch.utils import cuda_build, trace
 
@@ -2222,37 +2220,28 @@ def main(argv):
     # it, read just after, and both kernels must have launched in it
     launches = {}
 
+    base = [launch_counts()]
+
     def reset():
-        srt.KERNEL_LAUNCHES = 0
-        srt.ROUTE_LAUNCHES.update({r: 0 for r in srt.ROUTE_LAUNCHES})
-        bwd.KERNEL_LAUNCHES = 0
-        bwd.ROUTE_LAUNCHES.update({r: 0 for r in bwd.ROUTE_LAUNCHES})
-        bwd.CLUSTER_LAUNCHES.update({c: 0 for c in bwd.CLUSTER_LAUNCHES})
-        lt.KERNEL_LAUNCHES = 0
-        lt.PART_LAUNCHES.update({p: 0 for p in lt.PART_LAUNCHES})
+        base[0] = launch_counts()
 
     def read():
-        return ({"lane_sort": srt.KERNEL_LAUNCHES, "fused_backward": bwd.KERNEL_LAUNCHES,
-                 "layer_tail": lt.KERNEL_LAUNCHES},
-                {"lane_sort": dict(srt.ROUTE_LAUNCHES),
-                 "fused_backward": dict(bwd.ROUTE_LAUNCHES),
-                 "layer_tail": dict(lt.PART_LAUNCHES),
-                 "stream_clusters": dict(bwd.CLUSTER_LAUNCHES)})
+        return launches_since(base[0])
 
     graph_use = {}
 
     def graph_counts():
-        return {"layers": trace.layers(), "graph_layers": trace.graph_layers(),
-                "k3_layers": trace.k3_layers(), "captures": mdd.GRAPH_CAPTURES,
-                "replays": mdd.GRAPH_REPLAYS}
+        return {k: trace.counted(name) for k, name in (
+            ("layers", "layers"), ("graph_layers", "graph_layers"),
+            ("k3_layers", "layer_tail.dominance"), ("captures", "graph_captures"),
+            ("replays", "graph_replays"))}
 
     def counted(path, drive):
         """Drive one path between a reset and a read of the counts; a
         drive that returns (launches, routes) counts its own runs only.
         Beside them: the path's layer-loop iterations, those replayed from
         CUDA graphs, those whose tail ran through K3 (its last part's
-        runs; a drive with its own counts resets them), and the graphs
-        captured and replayed (three a layer)."""
+        runs), and the graphs captured and replayed (three a layer)."""
         reset()
         before = graph_counts()
         t0 = time.perf_counter()

@@ -30,12 +30,10 @@ import torch
 from ddo_tpu_torch.utils import cuda_build
 from ddo_tpu_torch.utils.num import INF, NEG_INF, sat_add, sat_sub
 
-#: launches of kernel K2 since import
-KERNEL_LAUNCHES = 0
-#: K2's routes, in csrc/backward.cu's numbering
+#: K2's routes, in csrc/backward.cu's numbering; each launch counts as
+#: "fused_backward.<route>", on "stream" "fused_backward.stream.<CTAs per
+#: lane>" (`utils/trace.py`)
 ROUTES = ("direct", "tma", "stream")
-#: launches of K2 by route since import
-ROUTE_LAUNCHES = {r: 0 for r in ROUTES}
 
 
 def thresh_rules(best_known, alive, val, rub, vb, cutf, exact, th, hs):
@@ -133,8 +131,6 @@ STREAM_PASSES = 2
 #: past it would wait for a second wave, so the planner keeps K within it
 CLUSTERS_RESIDENT = {1: cuda_build.SM_COUNT, 2: 66, 4: 30, 8: 15, 16: 7}
 MAX_CLUSTER = max(CLUSTERS_RESIDENT)
-#: launches of the "stream" route by CTAs per lane since import
-CLUSTER_LAUNCHES = {c: 0 for c in CLUSTERS_RESIDENT}
 #: the "stream" route's node passes a warp keeps in flight at once
 #: (csrc/backward.cu's instances of `backward_stream_kernel`)
 UNROLLS = (1, 2, 4, 8)
@@ -288,7 +284,8 @@ def resident_clusters(c, smem, threads):
     """How many clusters of c "stream" CTAs the card holds at once, as
     `cudaOccupancyMaxActiveClusters` reports (for CLUSTERS_RESIDENT)."""
     held = _lib().stream_resident_clusters(c, smem, threads)
-    cuda_build.check(max(0, -held), "cudaOccupancyMaxActiveClusters")
+    if held < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA status {-held}")
     return held
 
 
@@ -300,7 +297,6 @@ def fused_backward_cuda(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
     `route`, `cluster` and `unroll` force `backward_plan`'s choice.
     Planes off a 16-byte boundary take "direct", which reads them in
     place."""
-    global KERNEL_LAUNCHES
     ep_theta, wl_pruned, wl_ptheta = _filter_defaults(S_val, ep_theta, wl_pruned,
                                                       wl_ptheta)
     K, n, W = S_val.shape
@@ -318,15 +314,7 @@ def fused_backward_cuda(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
         ("wl_ptheta", wl_ptheta, i32, (K, n, W)), ("vb_init", vb_init, i32, (K, W)),
         ("th_init", th_init, i32, (K, W)), ("best_known", best_known, i32, (K,)),
     ]
-    dev = E_child.device
-    for name, t, dtype, shape in spec:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"fused_backward: {name} is not on {dev}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"fused_backward: {name} must be {dtype} {list(shape)}, "
-                             f"got {t.dtype} {list(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_backward: {name} must be contiguous")
+    dev = cuda_build.check_tensors("fused_backward", spec)
     plan = backward_plan(K, W, C // W, route, cluster, unroll)
     if plan.route != "direct" and any(t.data_ptr() % 16 for _, t, _, _ in spec[:11]):
         if route or cluster or unroll:
@@ -342,15 +330,9 @@ def fused_backward_cuda(E_child, E_cost, E_valid, S_val, S_rub, cutflag,
                                      vb.data_ptr(), mk.data_ptr(),
                                      th.data_ptr(), hs.data_ptr())
         ints = plan.ints()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            status = _lib().fused_backward(ptrs, (ctypes.c_int * len(ints))(*ints), K, n, W,
-                                           C // W, stream)
-        cuda_build.check(status, f"fused_backward ({plan.route})")
-        KERNEL_LAUNCHES += 1
-        ROUTE_LAUNCHES[plan.route] += 1
-        if plan.route == "stream":
-            CLUSTER_LAUNCHES[plan.cluster] += 1
+        cluster = f".{plan.cluster}" if plan.route == "stream" else ""
+        cuda_build.launch(f"fused_backward.{plan.route}{cluster}", _lib().fused_backward, dev,
+                          ptrs, (ctypes.c_int * len(ints))(*ints), K, n, W, C // W)
     return vb, mk.view(torch.bool), th, hs.view(torch.bool)
 
 

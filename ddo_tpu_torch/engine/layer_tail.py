@@ -42,24 +42,15 @@ from typing import NamedTuple
 import torch
 
 from ddo_tpu_torch.ops import segments as seg
-from ddo_tpu_torch.utils import cuda_build, trace
+from ddo_tpu_torch.utils import cuda_build
 from ddo_tpu_torch.utils.num import INF, NEG_INF, argmax_first, sat_add, sat_sub
 
 I32 = torch.int32
 _M27 = (1 << 27) - 1
 
-#: K3's parts, in launch order
+#: K3's parts, in launch order; each run counts as "layer_tail.<part>"
+#: (`utils/trace.py`), "dominance" ending a layer's tail
 PARTS = ("remap", "edges", "dominance")
-#: K3's kernel runs since import: launched eagerly, or replayed from a
-#: layer graph that captured them (`count_replayed`)
-KERNEL_LAUNCHES = 0
-#: the same by part; "dominance" ends a layer's tail, so its count is the
-#: layers whose tail ran through K3 (`trace.k3_layers`)
-PART_LAUNCHES = {p: 0 for p in PARTS}
-#: K3's launches recorded into CUDA graphs since import, by part: they run
-#: only when the graph replays, and each replay counts them
-#: (`count_replayed`, with the difference of this across its capture)
-CAPTURED = {p: 0 for p in PARTS}
 
 #: layer i's node planes that `edges` writes from the layer's own rows
 NODE_PLANES = ("val", "mask", "exact", "relaxed", "rub", "bp", "bd", "bs", "wlp", "wlth")
@@ -309,26 +300,6 @@ def dominance(i, nxt, w_dkey, w_dcoord, use_value, c_ebp, cur):
     return dominance_plain(i, nxt, w_dkey, w_dcoord, use_value, c_ebp, cur)
 
 
-def count_replayed(tally):
-    """Count the K3 runs of one replay of a graph whose capture recorded
-    `tally` ({part: launches}, the difference of `CAPTURED` across it)."""
-    global KERNEL_LAUNCHES
-    for p, n in tally.items():
-        KERNEL_LAUNCHES += n
-        PART_LAUNCHES[p] += n
-
-
-def _count(part):
-    """Count one launch of `part`: a run, or, while the current stream
-    captures a graph, a launch recorded into it."""
-    global KERNEL_LAUNCHES
-    if trace.capturing():
-        CAPTURED[part] += 1
-    else:
-        KERNEL_LAUNCHES += 1
-        PART_LAUNCHES[part] += 1
-
-
 # ------------------------------------------------------------------- kernels
 @functools.lru_cache(maxsize=None)
 def _lib():
@@ -340,41 +311,12 @@ def _lib():
     return lib
 
 
-def _check(part, args, optional=()):
-    """Raise unless every (name, tensor, dtype, shape) of `args` is what
-    the kernel reads: a tensor (None only for a name in `optional`) of
-    that dtype and shape, contiguous, and on one CUDA device, which it
-    returns."""
-    for name, x, dtype, shape in args:
-        if x is None:
-            if name not in optional:
-                raise ValueError(f"layer_tail.{part}: {name} is missing")
-            continue
-        if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-            raise ValueError(f"layer_tail.{part}: {name} must be {dtype} {list(shape)}, "
-                             f"got {x.dtype} {list(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"layer_tail.{part}: {name} must be contiguous")
-    device = None
-    for name, x, _, _ in args:
-        if x is not None and (not x.is_cuda or x.device != (device or x.device)):
-            raise ValueError(f"layer_tail.{part}: {name} is on {x.device}, not on "
-                             f"{device or 'a CUDA device'}")
-        device = device or (x.device if x is not None else None)
-    return device
-
-
-def _launch(part, args, ints, device):
-    """Launch part `part` with the pointers of `args` (0 for None) and the
-    ints `ints` on `device`'s current stream, and count it (`_count`)."""
-    ptrs = (ctypes.c_int64 * len(args))(*[0 if x is None else x.data_ptr()
-                                          for _, x, _, _ in args])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(_lib(), "layer_tail_" + part)(
-            ptrs, (ctypes.c_int * len(ints))(*ints), stream)
-    cuda_build.check(status, f"layer_tail.{part}")
-    _count(part)
+def _pointers(args, ints):
+    """A part's arguments as ctypes arrays: the pointers of `args` (0 for
+    None) and the ints `ints`."""
+    return ((ctypes.c_int64 * len(args))(*[0 if x is None else x.data_ptr()
+                                           for _, x, _, _ in args]),
+            (ctypes.c_int * len(ints))(*ints))
 
 
 def _sizes(t):
@@ -393,14 +335,15 @@ def remap_cuda(t):
             ("perm", i32, (K, C)), ("pruned", b, (K, C)), ("pci", b, (K, C)),
             ("ptheta", i32, (K, C)), ("cap", i32, (K,)), ("need_relax", b, (K,)),
             ("need_restrict", b, (K,))]]
-    dev = _check("remap", ins)
+    dev = cuda_build.check_tensors("layer_tail.remap", ins)
     out = Remap(torch.empty((K, C), dtype=i32, device=dev),
                 torch.empty((K, C), dtype=b, device=dev),
                 torch.empty((K, C), dtype=i32, device=dev),
                 torch.empty((K, C), dtype=i32, device=dev),
                 torch.empty((K, C), dtype=b, device=dev))
     args = ins + [(name, x, x.dtype, x.shape) for name, x in out._asdict().items()]
-    _launch("remap", args, [K, C], dev)
+    cuda_build.launch("layer_tail.remap", _lib().layer_tail_remap, dev,
+                      *_pointers(args, [K, C]))
     return out
 
 
@@ -435,11 +378,12 @@ def edges_cuda(i, t, a, merged_key, rcost, layer, P, E, lel, overflow):
     optional = {"rcost", "P.eptheta"}
     if t.get("skip_s") is None:
         optional |= {"skip_s", "f_skip"}
-    dev = _check("edges", ins + bufs, optional)
+    dev = cuda_build.check_tensors("layer_tail.edges", ins + bufs, optional)
     out = Next(*(torch.empty(kw, dtype=dtype, device=dev)
                  for dtype in (i32, b, i32, b, b, i32, i32, b, b)))
     args = ins + bufs + [(name, x, x.dtype, x.shape) for name, x in out._asdict().items()]
-    _launch("edges", args, [K, C, W, n, Kk], dev)
+    cuda_build.launch("layer_tail.edges", _lib().layer_tail_edges, dev,
+                      *_pointers(args, [K, C, W, n, Kk]))
     return out
 
 
@@ -457,6 +401,8 @@ def dominance_cuda(i, nxt, w_dkey, w_dcoord, use_value, c_ebp, cur):
     ins += [("w_dkey", w_dkey, i32, (K, W, KK)), ("w_dcoord", w_dcoord, i32, (K, W, CC)),
             ("c_ebp", c_ebp, b, (K, W))]
     bufs = [("cur." + x, cur.get(x), b if x in _BOOLS else i32, (K, W)) for x in CARRY]
-    dev = _check("dominance", ins + bufs, {"w_dkey", "w_dcoord"})
-    _launch("dominance", ins + bufs, [K, W, KK, CC, int(bool(use_value)),
-                                      int(w_dkey is not None)], dev)
+    dev = cuda_build.check_tensors("layer_tail.dominance", ins + bufs,
+                                   {"w_dkey", "w_dcoord"})
+    cuda_build.launch("layer_tail.dominance", _lib().layer_tail_dominance, dev,
+                      *_pointers(ins + bufs, [K, W, KK, CC, int(bool(use_value)),
+                                              int(w_dkey is not None)]))

@@ -165,7 +165,7 @@ def compile_lanes(spec: DDSpec, datas, order, root_states, root_values,
     of its sections, each replayed one the span `ddo.layer.replay`
     (after `ddo.layer.capture` where it captures), and `finalize` the
     span `ddo.finalize` (`utils/trace.py`)."""
-    trace.count_layers(spec.bundle.problem.nb_variables - start)
+    trace.count("layers", spec.bundle.problem.nb_variables - start)
     with trace.laps(_COMPILE_SPANS[spec.comp_type]) as lap:
         return _compile_lanes(spec, datas, order, root_states, root_values, root_depths,
                               best_lb, eff_width, root_path_sets, cache_tab, dom_tab,
@@ -223,9 +223,6 @@ GRAPH_CACHE_SIZE = 8
 _GRAPHS = collections.OrderedDict()
 #: the entry of a shape whose layer body waits on the host: it runs eagerly
 _EAGER = "eager"
-#: CUDA graphs captured and replayed since import, three a layer
-GRAPH_CAPTURES = 0
-GRAPH_REPLAYS = 0
 _SIDE_STREAMS = {}
 
 #: what the carried layer, the [K, n+1, W] planes and the [K, n, C]
@@ -433,20 +430,21 @@ class _Layers:
         return self.sorted[j]
 
     def _graph(self, body):
-        """`body()` captured as a CUDA graph in this shape's pool: the graph
-        and what body returned (tensors the graph writes on replay)."""
+        """`body()` captured as a CUDA graph in this shape's pool: the graph,
+        what body returned (tensors the graph writes on replay) and the
+        tally of what the capture counted (`trace.tally`)."""
         graph = torch.cuda.CUDAGraph()
-        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-        try:
-            out = body()
-        finally:
-            graph.capture_end()
-        return graph, out
+        with trace.tally() as tally:
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                out = body()
+            finally:
+                graph.capture_end()
+        return graph, out, tally
 
     def _capture(self, is_last):
         """The three graphs of a layer of this kind, or None where the body
         waits on the host (this shape then runs eagerly)."""
-        global GRAPH_CAPTURES
         dev = self.device
         if dev not in _SIDE_STREAMS:
             _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
@@ -454,35 +452,32 @@ class _Layers:
         side.wait_stream(stream)
         try:
             with torch.cuda.stream(side):
-                g1, (ops1, nk1, c) = self._graph(lambda: self._seg1(is_last, _no_lap))
+                g1, (ops1, nk1, c), t1 = self._graph(lambda: self._seg1(is_last, _no_lap))
                 s1 = self.sorted[0].unbind(0)
-                g2, (ops2, nk2, c) = self._graph(lambda: self._seg2(is_last, s1, c, _no_lap))
+                g2, (ops2, nk2, c), t2 = self._graph(
+                    lambda: self._seg2(is_last, s1, c, _no_lap))
                 s2 = self.sorted[1].unbind(0)
-                k3 = dict(layer_tail.CAPTURED)
-                g3, _ = self._graph(lambda: self._seg3(is_last, s2, c, _no_lap))
-                k3 = {p: layer_tail.CAPTURED[p] - k3[p] for p in k3}
+                g3, _, t3 = self._graph(lambda: self._seg3(is_last, s2, c, _no_lap))
         except trace.CaptureRefused:
             self.refused = True
             _GRAPHS[self.key] = _EAGER
             return None
         finally:
             stream.wait_stream(side)
-        GRAPH_CAPTURES += 3
-        # `k3` the K3 launches g3 holds; `c` every tensor the graphs pass
-        # on, kept for their lifetime
-        self.graphs[is_last] = (g1, ops1, nk1, g2, ops2, nk2, g3, k3, c)
+        trace.count("graph_captures", 3)
+        # `counts` what a replay of the three counts; `c` every tensor the
+        # graphs pass on, kept for their lifetime
+        counts = t1 + t2 + t3 + collections.Counter(graph_replays=3, graph_layers=1)
+        self.graphs[is_last] = (g1, ops1, nk1, g2, ops2, nk2, g3, counts, c)
         return self.graphs[is_last]
 
-    def _replay(self, g1, ops1, nk1, g2, ops2, nk2, g3, k3, c):
-        global GRAPH_REPLAYS
+    def _replay(self, g1, ops1, nk1, g2, ops2, nk2, g3, counts, c):
         g1.replay()
         _sort(ops1, nk1, self.sorted[0])
         g2.replay()
         _sort(ops2, nk2, self.sorted[1])
         g3.replay()
-        GRAPH_REPLAYS += 3
-        trace.count_graph_layers(1)
-        layer_tail.count_replayed(k3)
+        trace.replayed(counts)
 
     # ----------------------------------------------------- the body, in three
     def _full(self, shape, value, dtype=I32):

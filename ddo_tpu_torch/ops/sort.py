@@ -31,11 +31,8 @@ import torch
 
 from ddo_tpu_torch.utils import cuda_build
 
-#: calls of kernel K1 since import, one per `multi_sort_cuda` call on any
-#: route (a run reads it to show the main path went through the kernel)
-KERNEL_LAUNCHES = 0
-#: the same calls by route
-ROUTE_LAUNCHES = {"regs": 0, "perm": 0, "merge": 0}
+#: K1's routes; each call counts as "lane_sort.<route>" (`utils/trace.py`)
+ROUTES = ("regs", "perm", "merge")
 
 #: operands one call takes (LS_MAX_OPS in csrc/lane_sort.cu)
 MAX_OPERANDS = 512
@@ -212,7 +209,6 @@ def multi_sort_cuda(operands, num_keys, route=None, out=None):
     one shape.  `out`, a contiguous int32 [n, L, C] tensor on the
     operands' device, takes the sorted operands in place of the output
     allocation (the compile's layer graphs read them there)."""
-    global KERNEL_LAUNCHES
     n = len(operands)
     if n > MAX_OPERANDS:
         raise ValueError(f"lane_sort: {n} operands exceed the {MAX_OPERANDS} one launch takes")
@@ -221,44 +217,39 @@ def multi_sort_cuda(operands, num_keys, route=None, out=None):
     first = operands[0]
     L, C = first.shape
     route = route or lane_sort_route(num_keys, C, L)
-    if route not in ROUTE_LAUNCHES or not _fits(route, num_keys, C):
+    if route not in ROUTES or not _fits(route, num_keys, C):
         raise ValueError(f"lane_sort: route {route!r} does not take {num_keys} keys "
                          f"of C={C} rows")
+    dev = first.device
     for o in operands:
-        if not o.is_cuda or o.device != first.device:
+        if not o.is_cuda or o.device != dev:
             raise ValueError("lane_sort: every operand must be on one CUDA device")
-        if o.dtype != torch.int32 or tuple(o.shape) != (L, C):
+        if o.dtype != torch.int32 or o.shape != (L, C):
             raise ValueError(f"lane_sort: operands must be int32 [{L}, {C}]")
     if out is None:
-        out = torch.empty((n, L, C), dtype=torch.int32, device=first.device)
-    elif (out.dtype != torch.int32 or tuple(out.shape) != (n, L, C)
-          or out.device != first.device or not out.is_contiguous()):
-        raise ValueError(f"lane_sort: out must be a contiguous int32 [{n}, {L}, {C}] "
-                         "tensor on the operands' device")
+        out = torch.empty((n, L, C), dtype=torch.int32, device=dev)
+    elif cuda_build.check_tensors("lane_sort", [("out", out, torch.int32, (n, L, C))]) != dev:
+        raise ValueError(f"lane_sort: out is on {out.device}, not on the operands' {dev}")
     if L == 0 or C == 0:
         return tuple(out.unbind(0))
-    args = (_SmallArgs if n <= SMALL_OPERANDS else _LargeArgs)()
-    for t, o in enumerate(operands):
-        args.ptr[t] = o.data_ptr()
-        args.rs[t], args.cs[t] = o.stride()
-    with torch.cuda.device(first.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if route == "merge":
-            plan = merge_plan(L, C, num_keys)
-            ws = None
-            if plan.passes:
-                ws = torch.empty((2, plan.prefix_words + 1, L, C), dtype=torch.int32,
-                                 device=first.device)
-            status = _lib().lane_sort_merge(ctypes.byref(args), out.data_ptr(),
-                                            ws.data_ptr() if ws is not None else None, n,
-                                            num_keys, L, C, plan.tile_rows, plan.window_rows,
-                                            stream)
-        else:
-            fn = _lib().lane_sort_regs if route == "regs" else _lib().lane_sort_perm
-            status = fn(ctypes.byref(args), out.data_ptr(), n, num_keys, L, C, stream)
-    cuda_build.check(status, f"lane_sort ({route})")
-    KERNEL_LAUNCHES += 1
-    ROUTE_LAUNCHES[route] += 1
+    params = (_SmallArgs if n <= SMALL_OPERANDS else _LargeArgs)()
+    strides = [o.stride() for o in operands]
+    params.ptr[:n] = [o.data_ptr() for o in operands]
+    params.rs[:n] = [rs for rs, _ in strides]
+    params.cs[:n] = [cs for _, cs in strides]
+    if route == "merge":
+        plan = merge_plan(L, C, num_keys)
+        ws = None
+        if plan.passes:
+            ws = torch.empty((2, plan.prefix_words + 1, L, C), dtype=torch.int32,
+                             device=dev)
+        fn, args = _lib().lane_sort_merge, (ws.data_ptr() if ws is not None else None, n,
+                                            num_keys, L, C, plan.tile_rows, plan.window_rows)
+    else:
+        fn = _lib().lane_sort_regs if route == "regs" else _lib().lane_sort_perm
+        args = (n, num_keys, L, C)
+    cuda_build.launch("lane_sort." + route, fn, dev, ctypes.byref(params), out.data_ptr(),
+                      *args)
     return tuple(out.unbind(0))
 
 

@@ -8,6 +8,10 @@ source is rebuilt and a stale library is never loaded.  `nvcc -Xptxas -v`
 reports each kernel's registers, shared memory and spills; the report is
 kept beside the library (`ptxas_report`).  Nothing here runs at import
 time: the CPU tests import every module on hosts without `nvcc`.
+
+Every kernel wrapper checks its tensors with `check_tensors` (K1 its
+strided operands itself) and launches through `launch`, which counts
+the launch in `utils/trace.py`'s registry.
 """
 
 from __future__ import annotations
@@ -20,6 +24,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
+
+from ddo_tpu_torch.utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -106,3 +114,39 @@ def check(status: int, what: str):
     """Raise on a non-zero status returned by a kernel's C entry point."""
     if status != 0:
         raise RuntimeError(f"{what} failed with CUDA status {status}")
+
+
+def launch(name: str, fn, device, *args):
+    """`fn(*args, stream)`, a kernel's C entry point, on `device`'s current
+    stream; raises on a non-zero status (`check`), else counts one launch
+    of `name` (`trace.count`: "<kernel>.<route or part>")."""
+    with torch.cuda.device(device):
+        status = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check(status, name)
+    trace.count(name)
+
+
+def check_tensors(what: str, args, optional=()):
+    """Raise unless every (name, tensor, dtype, shape) of `args` is what
+    the kernel reads: a tensor (None only for a name in `optional`) of
+    that dtype and shape, contiguous, and on one CUDA device, which it
+    returns."""
+    for name, x, dtype, shape in args:
+        if x is None:
+            if name not in optional:
+                raise ValueError(f"{what}: {name} is missing")
+            continue
+        if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} must be {dtype} {list(shape)}, "
+                             f"got {x.dtype} {list(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    device = None
+    for name, x, _, _ in args:
+        if x is None:
+            continue
+        if not x.is_cuda or (device is not None and x.device != device):
+            raise ValueError(f"{what}: {name} is on {x.device}, not on "
+                             f"{device or 'a CUDA device'}")
+        device = device or x.device
+    return device

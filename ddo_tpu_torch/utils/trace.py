@@ -1,5 +1,5 @@
 """The port's timing and counting of itself: spans on the profiler's
-timeline, the phase clock of a solve, two process-wide counters and the
+timeline, the phase clock of a solve, the registry of counts and the
 stats of recent solves.
 
 Spans.  A span names a stretch of the host's work, "ddo.<layer>.<phase>".
@@ -11,28 +11,37 @@ per span: entering a `record_function` costs ~13 us on a CPU even with
 no profiler, which a compile's ~1,400 layer spans would add to it.  No
 name starts with "ddbench.": a benchmark's own spans start so.
 
-Counters.  `host_syncs()` counts the places where the port waits on the
-device: every such call goes through `wait`.  They are synchronizes of a
-stream, reads of a CUDA tensor on the host (`.cpu()`, `int()`), sizes
-that only the device knows (`torch.nonzero`) and copies from host arrays
-to the device, which from pageable memory wait for the stream.  They are
-counted on the CPU too, where nothing waits, so a CPU run counts the
-waits of a card run.  A wait cannot be recorded into a CUDA graph: while
-the current stream captures, `wait` raises `CaptureRefused` instead, and
-the compile that captures runs that layer body eagerly (engine/mdd.py).
-`layers()` counts the layer-loop iterations of every compile,
-`graph_layers()` those replayed from CUDA graphs, `k3_layers()` those
-whose tail ran through kernel K3 on a card (engine/layer_tail.py counts
-K3's runs).  A solve's share of each is the difference across it.
+Counts.  Every count of the port is a name in one registry: `count`
+adds to it, `counted(name)` reads it with every name under it
+("lane_sort" sums "lane_sort.regs", ".perm" and ".merge").  The names:
+"host_syncs", the waits on the device, each a call through `wait`
+(synchronizes, host reads of a CUDA tensor, `torch.nonzero`, copies from
+host arrays; counted on the CPU too, so a CPU run counts a card run's
+waits); "layers", the layer-loop iterations of every compile,
+"graph_layers" those replayed from CUDA graphs, "graph_captures" and
+"graph_replays" three a layer; and the launches of each hand-written
+kernel (`cuda_build.launch`): "lane_sort.<route>" (K1),
+"fused_backward.<route>" (K2, "fused_backward.stream.<c>" in clusters of
+c CTAs) and "layer_tail.<part>" (K3).  A solve's share is the difference
+across it (`Phases`).  A wait cannot be recorded into a CUDA graph: while
+the current stream captures, `wait` raises `CaptureRefused`, and that
+layer body runs eagerly (engine/mdd.py).  A kernel recorded into a graph
+runs on each replay: its capture opens a `tally`, which takes the counts
+in place of the totals, and each replay adds the tally (`replayed`).
+The code that captures opens it, so no count asks the driver whether the
+stream captures (K1, launched from the host twice a layer, stays one
+dictionary add).
 
 Recent solves.  `SOLVES` keeps the `SolverStats` of the last 1,024
 finished solves of the process, newest last (`solve_in` finds one by its
-start).  It and the three counters are the only state of this module.
+start).  It, the totals and the open tally are the only state of this
+module.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import time
 
@@ -40,7 +49,13 @@ import torch
 
 #: the SolverStats of the most recent finished solves, newest last
 SOLVES = collections.deque(maxlen=1024)
-_counts = {"syncs": 0, "layers": 0, "graph_layers": 0}
+#: every count of the process since import, by name
+_totals = collections.Counter()
+#: the tally of the open capture (`tally`), or None
+_tally = None
+#: the SolverStats field `Phases` fills from each count
+STATS = {"layers": "layers", "graph_layers": "graph_layers",
+         "k3_layers": "layer_tail.dominance", "host_syncs": "host_syncs"}
 
 #: each phase of a solve: its profiler span (None: the compile, whose
 #: `compile_lanes` calls open their own)
@@ -53,28 +68,35 @@ def profiling() -> bool:
     return torch.autograd.profiler._is_profiler_enabled
 
 
-def host_syncs() -> int:
-    """Host syncs of this process so far."""
-    return _counts["syncs"]
+def count(name: str, n: int = 1):
+    """Add n to count `name`: to the open capture's tally while one is
+    open (`tally`), else to its total."""
+    (_totals if _tally is None else _tally)[name] += n
 
 
-def layers() -> int:
-    """Layer-loop iterations of this process so far."""
-    return _counts["layers"]
+def counted(name: str) -> int:
+    """The total of count `name` and of every name under it (`name.*`)."""
+    under = name + "."
+    return _totals[name] + sum(n for k, n in _totals.items() if k.startswith(under))
 
 
-def graph_layers() -> int:
-    """Layer-loop iterations of this process replayed from CUDA graphs."""
-    return _counts["graph_layers"]
+@contextlib.contextmanager
+def tally():
+    """A context whose counts go to a new tally (a Counter, yielded)
+    instead of the totals: the launches a CUDA graph's capture records,
+    which each replay of the graph adds (`replayed`)."""
+    global _tally
+    outer, _tally = _tally, collections.Counter()
+    try:
+        yield _tally
+    finally:
+        _tally = outer
 
 
-def k3_layers() -> int:
-    """Layer-loop iterations of this process whose tail ran through kernel
-    K3, eagerly or replayed: the runs of its last part, as
-    engine/layer_tail.py counts them."""
-    from ddo_tpu_torch.engine import layer_tail
-
-    return layer_tail.PART_LAUNCHES["dominance"]
+def replayed(counts):
+    """Count one replay of what a capture's `tally` holds, name by name."""
+    for name, n in counts.items():
+        count(name, n)
 
 
 class CaptureRefused(Exception):
@@ -94,18 +116,8 @@ def wait(fn, *args, **kw):
     while the current stream captures."""
     if capturing():
         raise CaptureRefused(f"{getattr(fn, '__name__', fn)} waits on the device")
-    _counts["syncs"] += 1
+    count("host_syncs")
     return fn(*args, **kw)
-
-
-def count_layers(n: int):
-    """Add one compile's layer-loop iterations."""
-    _counts["layers"] += n
-
-
-def count_graph_layers(n: int):
-    """Add layer-loop iterations replayed from CUDA graphs."""
-    _counts["graph_layers"] += n
 
 
 def solve_in(start: float, end: float):
@@ -173,16 +185,16 @@ class Phases:
     `Phases(stats)` to `stop()` (its first is "pop", the set-up), so the
     five phases add up to `total_s`; while a profiler records, less the
     cost of entering and leaving their spans, which no phase holds.
-    `stop()` fills `total_s`, `end_ns`, `layers`, `graph_layers`,
-    `k3_layers` and `host_syncs` and keeps a copy of the stats in `SOLVES`."""
+    `stop()` fills `total_s`, `end_ns` and each field of `STATS` (the
+    solve's difference of its count) and keeps a copy of the stats in
+    `SOLVES`."""
 
     def __init__(self, stats):
         self.stats = stats
         self.on = False
         self.span = None
         self.fields = ()
-        self.syncs, self.layers, self.graph_layers = host_syncs(), layers(), graph_layers()
-        self.k3_layers = k3_layers()
+        self.counts = {f: counted(name) for f, name in STATS.items()}
         stats.start_ns = time.time_ns()
         stats.start = self.t = time.perf_counter()
 
@@ -212,8 +224,6 @@ class Phases:
         st = self.stats
         st.total_s = self.t - st.start
         st.end_ns = time.time_ns()
-        st.layers += layers() - self.layers
-        st.graph_layers += graph_layers() - self.graph_layers
-        st.k3_layers += k3_layers() - self.k3_layers
-        st.host_syncs += host_syncs() - self.syncs
+        for f, name in STATS.items():
+            setattr(st, f, getattr(st, f) + counted(name) - self.counts[f])
         SOLVES.append(copy.copy(st))

@@ -154,9 +154,9 @@ def test_wait_refuses_only_while_capturing(monkeypatch):
     stream captures (faked here) it raises `CaptureRefused`, calls nothing
     and counts nothing."""
     calls = []
-    before = trace.host_syncs()
+    before = trace.counted("host_syncs")
     assert trace.wait(calls.append, 1) is None and calls == [1]
-    assert trace.host_syncs() == before + 1
+    assert trace.counted("host_syncs") == before + 1
     assert not trace.capturing()  # no CUDA initialized: the driver is not asked
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
@@ -166,7 +166,7 @@ def test_wait_refuses_only_while_capturing(monkeypatch):
     assert trace.capturing()
     with pytest.raises(trace.CaptureRefused, match="append"):
         trace.wait(calls.append, 3)
-    assert calls == [1, 2] and trace.host_syncs() == before + 2
+    assert calls == [1, 2] and trace.counted("host_syncs") == before + 2
 
 
 def _inputs(bundle, dom, K=2, W=8, tables=False):
@@ -233,10 +233,10 @@ def test_cpu_compiles_keep_no_graph_state():
     bundle, dom = model("knapsack", 0)
     c = tt.DDCompiler(bundle, 8, dominance=dom, device="cpu")
     root = tt.root_subproblem(bundle.problem)
-    before, graphs = trace.graph_layers(), dict(mdd._GRAPHS)
+    before, graphs = trace.counted("graph_layers"), dict(mdd._GRAPHS)
     a = c.compile_batch(tt.CompilationType.RELAXED, [root], NEG_INF, [3])
     b = c.compile_batch(tt.CompilationType.RELAXED, [root], NEG_INF, [3])
-    assert trace.graph_layers() == before and dict(mdd._GRAPHS) == graphs
+    assert trace.counted("graph_layers") == before and dict(mdd._GRAPHS) == graphs
     assert a.dev["value"] is not b.dev["value"]
     assert torch.equal(a.dev["value"], b.dev["value"])
 
@@ -334,17 +334,17 @@ def test_replayed_compiles_equal_the_cpu(name, K, tables, monkeypatch):
     tabs = {(seed, dev): _tables(*model(name, seed), W, dev) if tables else None
             for seed in (1, 2) for dev in ("cuda", "cpu")}
     mdd._GRAPHS.clear()
-    k3 = trace.k3_layers()
+    k3 = trace.counted("layer_tail.dominance")
     first = _fused(*model(name, 1), W, K, tabs[1, "cuda"], "cuda")
-    layers, graphs = trace.layers(), trace.graph_layers()
+    layers, graphs = trace.counted("layers"), trace.counted("graph_layers")
     second = _fused(*model(name, 2), W, K, tabs[2, "cuda"], "cuda")
     torch.cuda.synchronize()
-    ran, replayed = trace.layers() - layers, trace.graph_layers() - graphs
+    ran, replayed = trace.counted("layers") - layers, trace.counted("graph_layers") - graphs
     n = model(name, 1)[0].problem.nb_variables
     assert ran == 2 * n
     assert replayed == (0 if name in WAITING else ran)
     # every layer's tail, eager, captured or replayed, ran through K3
-    assert trace.k3_layers() - k3 == 2 * ran
+    assert trace.counted("layer_tail.dominance") - k3 == 2 * ran
     for seed, batches in ((1, first), (2, second)):
         if name == "talentsched":
             with monkeypatch.context() as m:
@@ -359,8 +359,10 @@ def test_replayed_compiles_equal_the_cpu(name, K, tables, monkeypatch):
         assert entries == [mdd._EAGER] * 2
     else:  # the middle layers' graphs apart from the last layer's
         assert all(set(e.graphs) == {False, True} for e in entries)
-        # each layer's third graph holds one launch of each of K3's parts
-        assert all(g[7] == {p: 1 for p in layer_tail.PARTS}
+        # a replay counts its three graphs, one layer and the one launch
+        # of each of K3's parts that the third graph holds
+        assert all(g[7] == {"graph_replays": 3, "graph_layers": 1,
+                            **{"layer_tail." + p: 1 for p in layer_tail.PARTS}}
                    for e in entries for g in e.graphs.values())
 
 
@@ -402,14 +404,14 @@ def test_a_replayed_compile_makes_no_host_sync(name):
     spec = c._specs[tt.CompilationType.RELAXED]
     states, values, depths, lb, widths, psets = roots
     torch.cuda.synchronize()
-    graphs = trace.graph_layers()
+    graphs = trace.counted("graph_layers")
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = mdd.compile_lanes(spec, c.datas, order, states, values, depths, lb, widths,
                                 psets, cache_tab=cache_tab, dom_tab=dom_tab)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert trace.graph_layers() - graphs == bundle.problem.nb_variables
+    assert trace.counted("graph_layers") - graphs == bundle.problem.nb_variables
     cache_tab, dom_tab = _tables(bundle, dom, W, "cpu")
     ref = tt.DDCompiler(bundle, W, dominance=dom, device="cpu").compile_batch(
         tt.CompilationType.RELAXED, subs, NEG_INF, [2, 3, 5, W], cache_tab=cache_tab,

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from ddo_tpu_torch.engine import backward as tbwd
 from ddo_tpu_torch.ops import sort as tsort
+from ddo_tpu_torch.utils import trace
 from ddo_tpu_torch.utils.num import INF, NEG_INF
 
 NAMES = ["vb", "mk", "th", "hs"]
@@ -63,13 +64,13 @@ def _card():
 
 def _sorted_on_card(ops, nk, route=None):
     """K1 on `ops`, checking it counted one call, on the route taken."""
-    before = tsort.KERNEL_LAUNCHES
+    before = trace.counted("lane_sort")
     taken = route or tsort.lane_sort_route(nk, ops[0].shape[1])
-    on_route = tsort.ROUTE_LAUNCHES[taken]
+    on_route = trace.counted("lane_sort." + taken)
     got = tsort.multi_sort_cuda(ops, nk, route=route)
     torch.cuda.synchronize()
-    assert tsort.KERNEL_LAUNCHES == before + 1  # one call for any operand count
-    assert tsort.ROUTE_LAUNCHES[taken] == on_route + 1
+    assert trace.counted("lane_sort") == before + 1  # one call for any operand count
+    assert trace.counted("lane_sort." + taken) == on_route + 1
     return got
 
 
@@ -388,15 +389,17 @@ def _backward_on_card(K, n, W, D, seed, filters=True, **force):
     args, bk, extras = random_case(np.random.default_rng(seed), n, W, D, K)
     t = [torch.from_numpy(a).cuda() for a in args + [bk] + (extras if filters else [])]
     ref = tbwd.backward_scans(*t)
-    before, by_route = tbwd.KERNEL_LAUNCHES, dict(tbwd.ROUTE_LAUNCHES)
-    by_cluster = dict(tbwd.CLUSTER_LAUNCHES)
+    routes = lambda: {r: trace.counted("fused_backward." + r) for r in tbwd.ROUTES}
+    clusters = lambda: {c: trace.counted(f"fused_backward.stream.{c}")
+                        for c in tbwd.CLUSTERS_RESIDENT}
+    before, by_route, by_cluster = trace.counted("fused_backward"), routes(), clusters()
     got = tbwd.fused_backward_cuda(*t, **force)
     torch.cuda.synchronize()
-    assert tbwd.KERNEL_LAUNCHES == before + 1
-    taken = [r for r in tbwd.ROUTES if tbwd.ROUTE_LAUNCHES[r] != by_route[r]]
-    assert len(taken) == 1 and tbwd.ROUTE_LAUNCHES[taken[0]] == by_route[taken[0]] + 1
-    clusters = {c: m - by_cluster[c] for c, m in tbwd.CLUSTER_LAUNCHES.items()
-                if m != by_cluster[c]}
+    assert trace.counted("fused_backward") == before + 1
+    after = routes()
+    taken = [r for r in tbwd.ROUTES if after[r] != by_route[r]]
+    assert len(taken) == 1 and after[taken[0]] == by_route[taken[0]] + 1
+    clusters = {c: m - by_cluster[c] for c, m in clusters().items() if m != by_cluster[c]}
     if taken[0] == "stream":
         assert clusters == {tbwd.backward_plan(K, W, D, **force).cluster: 1}
     else:
@@ -561,9 +564,9 @@ def test_fused_backward_misaligned_planes_on_card(K, n, W, D):
     t[3] = shifted.view(t[3].shape).copy_(t[3])
     assert t[3].data_ptr() % 16 and t[3].is_contiguous()
     ref = tbwd.backward_scans(*t)
-    direct = tbwd.ROUTE_LAUNCHES["direct"]
+    direct = trace.counted("fused_backward.direct")
     got = tbwd.fused_backward_cuda(*t)
-    assert tbwd.ROUTE_LAUNCHES["direct"] == direct + 1
+    assert trace.counted("fused_backward.direct") == direct + 1
     for r, g, name in zip(ref, got, NAMES):
         assert torch.equal(r, g), name
     with pytest.raises(ValueError, match="16-byte"):
@@ -574,5 +577,5 @@ def test_fused_backward_refuses_cpu_tensors():
     rng = np.random.default_rng(0)
     args, bk, extras = random_case(rng, 3, 8, 2, 2)
     t = [torch.from_numpy(a) for a in args + [bk] + extras]
-    with pytest.raises(ValueError, match="is not on"):
+    with pytest.raises(ValueError, match="E_child is on cpu, not on a CUDA device"):
         tbwd.fused_backward_cuda(*t)

@@ -194,13 +194,14 @@ def test_cpu_compiles_run_the_plain_parts_and_count_no_k3_layer(name):
             plain = getattr(lt, p + "_plain")
             m.setattr(lt, p + "_plain", lambda *a, p=p, plain=plain: (seen.append(p),
                                                                        plain(*a))[1])
-        before, launches = trace.k3_layers(), lt.KERNEL_LAUNCHES
+        before, launches = trace.counted("layer_tail.dominance"), trace.counted("layer_tail")
         solver = tt.SequentialSolver(bundle, width_heu=tt.FixedWidth(4), batch=4,
                                      device="cpu", dominance=dom and tt.SimpleDominanceChecker(
                                          dom, bundle.problem.nb_variables))
         solver.maximize()
     assert solver.stats.layers > 0 and solver.stats.k3_layers == 0
-    assert trace.k3_layers() == before and lt.KERNEL_LAUNCHES == launches
+    assert trace.counted("layer_tail.dominance") == before
+    assert trace.counted("layer_tail") == launches
     assert seen == list(lt.PARTS) * solver.stats.layers
 
 
@@ -275,32 +276,6 @@ def test_k3_layer_pct_reader(monkeypatch):
     assert reader.read({"platform": "gpu", "solves": solves, "trace": None}) is None
 
 
-def test_replays_count_every_part():
-    """A replay counts the launches its graph captured, part by part, and
-    `trace.k3_layers` the runs of the last part."""
-    before, layers = (dict(lt.PART_LAUNCHES), lt.KERNEL_LAUNCHES), trace.k3_layers()
-    lt.count_replayed({"remap": 2, "edges": 1, "dominance": 1})
-    assert lt.KERNEL_LAUNCHES == before[1] + 4
-    assert [lt.PART_LAUNCHES[p] - before[0][p] for p in lt.PARTS] == [2, 1, 1]
-    assert trace.k3_layers() == layers + 1
-    lt.count_replayed({})
-    assert lt.KERNEL_LAUNCHES == before[1] + 4
-
-
-@pytest.mark.parametrize("capturing", [False, True])
-def test_a_launch_counts_as_a_run_or_as_captured(capturing, monkeypatch):
-    """A launch while the stream captures is recorded into the graph and
-    counted in `CAPTURED` only; any other is a run."""
-    monkeypatch.setattr(trace, "capturing", lambda: capturing)
-    before = dict(lt.PART_LAUNCHES), lt.KERNEL_LAUNCHES, dict(lt.CAPTURED)
-    for p in lt.PARTS:
-        lt._count(p)
-    runs = [lt.PART_LAUNCHES[p] - before[0][p] for p in lt.PARTS]
-    captured = [lt.CAPTURED[p] - before[2][p] for p in lt.PARTS]
-    assert runs == [0 if capturing else 1] * 3 and captured == [1 if capturing else 0] * 3
-    assert lt.KERNEL_LAUNCHES - before[1] == (0 if capturing else 3)
-
-
 # ---------------------------------------------------------------- the card
 def _card():
     if not torch.cuda.is_available():
@@ -320,11 +295,11 @@ def test_k3_equals_its_plain_version_in_every_layer(name, K, tables, monkeypatch
     bundle, dom = model(name, 1)
     tabs = _tables(bundle, dom, W, "cuda") if tables else None
     tail = Tail(monkeypatch)
-    launches = lt.KERNEL_LAUNCHES
+    launches = trace.counted("layer_tail")
     got = _fused(bundle, dom, W, K, tabs, "cuda")
     torch.cuda.synchronize()
     assert tail.layers == 2 * bundle.problem.nb_variables
-    assert lt.KERNEL_LAUNCHES - launches == 3 * tail.layers
+    assert trace.counted("layer_tail") - launches == 3 * tail.layers
     monkeypatch.undo()
     if name != "talentsched":  # its float32 rough bound adds in another order
         ref = _fused(bundle, dom, W, K, _tables(bundle, dom, W, "cpu") if tables else None,

@@ -2,10 +2,14 @@
 five phases of `SolverStats` tile a solve on every superstep route, the
 profiler's spans lie on the solve's `time.time_ns` bracket and add up
 to its phases, no span is entered without a profiler, the host-sync
-count of fixed instances, the four benchmark metrics that read the
-stats, and, on a card, that every wait on the device is a counted one."""
+count of fixed instances, the registry of counts (a capture's tally, a
+replay, `utils/cuda_build.py`'s `launch`, and no import of the engine
+from `utils/`), the four benchmark metrics that read the stats, and, on
+a card, that every wait on the device is a counted one."""
 
 import os
+import subprocess
+import sys
 import traceback
 import warnings
 
@@ -19,7 +23,7 @@ from ddbench import cell as cells
 from ddo_tpu_torch.models import knapsack as kp
 from ddo_tpu_torch.models import tsptw as ts
 from ddo_tpu_torch.search.solver import SolverStats
-from ddo_tpu_torch.utils import trace
+from ddo_tpu_torch.utils import cuda_build, trace
 
 PHASES = ("pop_s", "snapshot_s", "compile_s", "extract_s", "absorb_s")
 #: each span and the SolverStats field it times
@@ -171,9 +175,9 @@ def test_host_syncs_of_a_fixed_instance(model, compact, syncs):
     them over with one synchronize per extraction."""
     solver = make(model, "sequential-fused")
     solver._compact = compact
-    before = trace.host_syncs()
+    before = trace.counted("host_syncs")
     solver.maximize()
-    assert solver.stats.host_syncs == trace.host_syncs() - before == syncs
+    assert solver.stats.host_syncs == trace.counted("host_syncs") - before == syncs
 
 
 def test_layers_count_every_compiles_loop(monkeypatch):
@@ -190,6 +194,104 @@ def test_layers_count_every_compiles_loop(monkeypatch):
     solver = make("knapsack", "sequential-two-pass")
     solver.maximize()
     assert len(calls) > 2 and solver.stats.layers == sum(calls)
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_a_count_while_capturing_goes_to_the_tally(capturing):
+    """Inside a capture's tally a count goes to the tally, not to the
+    total; outside one it goes to the total (and to no tally)."""
+    before = trace.counted("layer_tail"), trace.counted("layer_tail.edges")
+    if capturing:
+        with trace.tally() as tally:
+            trace.count("layer_tail.edges")
+            trace.count("layer_tail.remap", 2)
+        assert tally == {"layer_tail.edges": 1, "layer_tail.remap": 2}
+        assert (trace.counted("layer_tail"), trace.counted("layer_tail.edges")) == before
+    else:
+        trace.count("layer_tail.edges")
+        trace.count("layer_tail.remap", 2)
+        assert trace.counted("layer_tail") == before[0] + 3
+        assert trace.counted("layer_tail.edges") == before[1] + 1
+    assert trace._tally is None
+
+
+def test_a_replay_adds_its_tally_and_k3_layers_follow_it(monkeypatch):
+    """A replay adds its tally name by name, and a solve's
+    `SolverStats.k3_layers` is the runs of K3's last part across it."""
+    monkeypatch.setattr(trace, "SOLVES", trace.SOLVES.__class__(maxlen=4))
+    names = ("layer_tail.remap", "layer_tail.dominance", "graph_layers", "graph_replays",
+             "lane_sort.regs")
+    before = {name: trace.counted(name) for name in names}
+    with trace.tally() as tally:
+        trace.count("layer_tail.remap", 3)
+        trace.count("layer_tail.dominance")
+    tally.update(graph_replays=3, graph_layers=1)
+    stats = SolverStats()
+    clock = trace.Phases(stats)
+    clock.lap("pop")
+    for _ in range(2):
+        trace.replayed(tally)
+    clock.stop()
+    assert {name: trace.counted(name) - n for name, n in before.items()} == {
+        "layer_tail.remap": 6, "layer_tail.dominance": 2, "graph_layers": 2,
+        "graph_replays": 6, "lane_sort.regs": 0}
+    assert (stats.k3_layers, stats.graph_layers, stats.layers) == (2, 2, 0)
+    assert trace.SOLVES[-1].k3_layers == 2
+
+
+@pytest.mark.parametrize("status", [0, 2])
+def test_launch_passes_the_stream_checks_and_counts(status, monkeypatch):
+    """`cuda_build.launch` calls the entry point with the current stream
+    last, in the device's context; a non-zero status raises and counts
+    nothing, any other counts one launch of its name."""
+    entered = []
+
+    class Device:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            entered.append(self.device)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("Stream", (), {"cuda_stream": 77})())
+    calls = []
+    before = trace.counted("fused_backward.stream.4"), trace.counted("fused_backward")
+    launch = lambda: cuda_build.launch("fused_backward.stream.4",
+                                       lambda *a: calls.append(a) or status, "cuda:1", 5, 6)
+    if status:
+        with pytest.raises(RuntimeError, match="fused_backward.stream.4 failed with CUDA "
+                                               "status 2"):
+            launch()
+    else:
+        launch()
+    assert calls == [(5, 6, 77)] and entered == ["cuda:1"]
+    added = 0 if status else 1
+    assert trace.counted("fused_backward.stream.4") == before[0] + added
+    assert trace.counted("fused_backward") == before[1] + added
+
+
+def test_utils_import_nothing_of_the_engine():
+    """`utils/trace.py` and `utils/cuda_build.py`, imported in a fresh
+    interpreter without the package's `__init__` (which imports
+    everything), load no module of `engine/`, `ops/` or `search/`."""
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(trace.__file__)))
+    code = (
+        "import sys, types\n"
+        "pkg = types.ModuleType('ddo_tpu_torch')\n"
+        f"pkg.__path__ = [{pkg!r}]\n"
+        "sys.modules['ddo_tpu_torch'] = pkg\n"
+        "import ddo_tpu_torch.utils.trace, ddo_tpu_torch.utils.cuda_build\n"
+        "print(sorted(m for m in sys.modules if m.startswith('ddo_tpu_torch.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True).stdout
+    loaded = eval(out)
+    assert "ddo_tpu_torch.utils.cuda_build" in loaded
+    assert not [m for m in loaded if m.split(".")[1] in ("engine", "ops", "search")]
 
 
 def _reader(name):
@@ -268,9 +370,9 @@ def test_every_wait_on_the_card_is_counted(name):
         torch.cuda.set_sync_debug_mode("warn")  # which may warn itself
         try:
             solving[0] = True
-            before = trace.host_syncs()
+            before = trace.counted("host_syncs")
             solver.maximize()
-            counted = trace.host_syncs() - before
+            counted = trace.counted("host_syncs") - before
         finally:
             solving[0] = False
             torch.cuda.set_sync_debug_mode(0)
